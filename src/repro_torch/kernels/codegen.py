@@ -1,0 +1,270 @@
+"""Expression trees -> CUDA source: the paper's generative programming,
+aimed at the GPU.
+
+The fused kernels evaluate a plan predicate (and aggregate values, and a
+dense group index) per row inside the kernel.  The reference package
+calls the expression evaluator from inside a Pallas tile closure; a CUDA
+kernel cannot call Python, so this module writes the expression out as a
+`__device__` functor and the kernel body (`csrc/*.cuh`) is instantiated
+around it.  Every node kind of `fused._SAFE` is covered: Col, Const,
+Param, Arith, Cmp, And, Or, Not, Where, Year, CodeEq, CodeIn and
+CodeRange.
+
+Typing follows torch's promotion for what the engine feeds the kernels
+(int32 and float32 columns, Python-scalar constants and parameters): a
+float anywhere makes a float, integer arithmetic stays int32, and `/`
+is true division, so two ints divide as floats.  Constants are weak: a
+float constant takes float32, never double.  Every float literal is
+therefore emitted as the shortest decimal that round-trips its float32
+value, with an `f` suffix — a bare `0.07` is a double in C++, and
+`0.07f <= 0.07` is false, which would drop every row of a float32
+column equal to the constant.  Year relies on positive operands: C's `/`
+truncates where Python's `//` floors (see `year_of_days`).
+
+Parameters become scalar members of the functor, filled from the
+launch's arguments, so rebinding a parameter never changes the source and
+never rebuilds the kernel.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from repro_torch.core import expr as E
+
+_COL_TYPES = {"torch.int32": "int", "torch.float32": "float",
+              "torch.bool": "bool"}
+_POINTER = {"int": "const int*", "float": "const float*",
+            "bool": "const bool*"}
+
+
+def float_literal(v: float) -> str:
+    """A float32 C++ literal for `v`, rounded to float32 first."""
+    f = np.float32(v)
+    if math.isnan(f):
+        return "repro::f32_from_bits(0x7fc00000u)"
+    if math.isinf(f):
+        return "repro::f32_from_bits(0x7f800000u)" if f > 0 \
+            else "repro::f32_from_bits(0xff800000u)"
+    s = str(f)
+    if not any(ch in s for ch in ".e"):
+        s += ".0"
+    return s + "f"
+
+
+def _int_literal(v: int) -> str:
+    v = int(v)
+    if not -(2**31) <= v < 2**31:
+        raise ValueError(f"integer constant {v} does not fit int32")
+    return str(v) if v != -(2**31) else "(-2147483647 - 1)"
+
+
+def _scalar_type(v) -> str:
+    if isinstance(v, (bool, np.bool_)):
+        return "bool"
+    if isinstance(v, (int, np.integer)):
+        return "int"
+    if isinstance(v, (float, np.floating)):
+        return "float"
+    raise TypeError(f"unsupported kernel scalar {v!r} ({type(v).__name__})")
+
+
+def _promote(a: str, b: str) -> str:
+    if "float" in (a, b):
+        return "float"
+    return "int"
+
+
+def _cast(code: str, have: str, want: str) -> str:
+    return code if have == want else f"({want}){code}"
+
+
+class Emitter:
+    """Emits C++ expressions over `c<k>[i]` column loads and `p<k>`
+    parameter members.  `col_types` maps each column name (in argument
+    order) to "int" | "float" | "bool"; `param_types` does the same for
+    the parameters."""
+
+    def __init__(self, col_types: dict[str, str], param_types: dict[str, str]):
+        self.cols = list(col_types)
+        self.col_types = dict(col_types)
+        self.params = list(param_types)
+        self.param_types = dict(param_types)
+
+    def col(self, name: str) -> tuple[str, str]:
+        return f"c{self.cols.index(name)}[i]", self.col_types[name]
+
+    def emit(self, e) -> tuple[str, str]:
+        """(C++ expression, its type) for one Expr node."""
+        if isinstance(e, E.Col):
+            return self.col(e.name)
+        if isinstance(e, E.Const):
+            v = e.value
+            if isinstance(v, (bool, np.bool_)):
+                return ("true" if v else "false"), "bool"
+            if isinstance(v, (int, np.integer)):
+                return _int_literal(v), "int"
+            return float_literal(v), "float"
+        if isinstance(e, E.Param):
+            return f"p{self.params.index(e.name)}", self.param_types[e.name]
+        if isinstance(e, E.Arith):
+            (l, lt), (r, rt) = self.emit(e.lhs), self.emit(e.rhs)
+            t = "float" if e.op == "/" else _promote(lt, rt)
+            return f"({_cast(l, lt, t)} {e.op} {_cast(r, rt, t)})", t
+        if isinstance(e, E.Cmp):
+            (l, lt), (r, rt) = self.emit(e.lhs), self.emit(e.rhs)
+            t = _promote(lt, rt)
+            return f"({_cast(l, lt, t)} {e.op} {_cast(r, rt, t)})", "bool"
+        if isinstance(e, E.And):
+            return f"({self.emit(e.lhs)[0]} && {self.emit(e.rhs)[0]})", "bool"
+        if isinstance(e, E.Or):
+            return f"({self.emit(e.lhs)[0]} || {self.emit(e.rhs)[0]})", "bool"
+        if isinstance(e, E.Not):
+            return f"(!{self.emit(e.operand)[0]})", "bool"
+        if isinstance(e, E.Where):
+            c = self.emit(e.cond)[0]
+            (t, tt), (o, ot) = self.emit(e.then), self.emit(e.other)
+            ty = "bool" if tt == ot == "bool" else _promote(tt, ot)
+            return (f"({c} ? {_cast(t, tt, ty)} : {_cast(o, ot, ty)})", ty)
+        if isinstance(e, E.Year):
+            x, xt = self.emit(e.operand)
+            if xt != "int":
+                raise TypeError("Year takes an integer date operand")
+            return f"repro::year_of_days({x})", "int"
+        if isinstance(e, E.CodeEq):
+            c, _ = self.col(e.col)
+            op = "!=" if e.negate else "=="
+            return f"({c} {op} {_int_literal(e.code)})", "bool"
+        if isinstance(e, E.CodeIn):
+            c, _ = self.col(e.col)
+            if not e.codes:
+                return "false", "bool"
+            return ("(" + " || ".join(f"{c} == {_int_literal(k)}"
+                                      for k in e.codes) + ")"), "bool"
+        if isinstance(e, E.CodeRange):
+            c, _ = self.col(e.col)
+            return (f"({c} >= {_int_literal(e.lo)} && "
+                    f"{c} < {_int_literal(e.hi)})"), "bool"
+        raise TypeError(f"{type(e).__name__} has no kernel form")
+
+    def members(self) -> list[str]:
+        out = [f"  {_POINTER[self.col_types[c]]} c{k};  // {c}"
+               for k, c in enumerate(self.cols)]
+        out += [f"  {self.param_types[p]} p{k};  // param {p}"
+                for k, p in enumerate(self.params)]
+        return out
+
+    def fill(self, var: str) -> list[str]:
+        """Statements filling functor `var` from the launcher's arguments:
+        `cols` (device pointers), `fp` (float params as double) and `ip`
+        (int and bool params as long long), positional per kind."""
+        out = [f"  {var}.c{k} = ({_POINTER[self.col_types[c]]})cols[{k}];"
+               for k, c in enumerate(self.cols)]
+        nf = ni = 0
+        for k, p in enumerate(self.params):
+            t = self.param_types[p]
+            if t == "float":
+                out.append(f"  {var}.p{k} = (float)fp[{nf}];")
+                nf += 1
+            else:
+                out.append(f"  {var}.p{k} = ({t})ip[{ni}];")
+                ni += 1
+        return out
+
+
+def column_types(cols: dict) -> dict[str, str]:
+    """C element type of each column tensor, in argument order."""
+    out = {}
+    for name, t in cols.items():
+        ty = _COL_TYPES.get(str(t.dtype))
+        if ty is None:
+            raise TypeError(f"column {name!r} has dtype {t.dtype}; the "
+                            "kernels take int32, float32 or bool columns")
+        out[name] = ty
+    return out
+
+
+def param_types(param_names: list[str], scalars: list) -> dict[str, str]:
+    return {p: _scalar_type(v) for p, v in zip(param_names, scalars)}
+
+
+def split_scalars(param_names: list[str], scalars: list
+                  ) -> tuple[list[float], list[int]]:
+    """The launch's float and integer parameter arrays (see `fill`)."""
+    fp, ip = [], []
+    for v in scalars:
+        if _scalar_type(v) == "float":
+            fp.append(float(v))
+        else:
+            ip.append(int(v))
+    return fp, ip
+
+
+_HEADER = "// Generated by repro_torch/kernels/codegen.py from plan " \
+          "expressions.\n"
+_ARGS = "const void* const* cols, const double* fp, const long long* ip"
+
+
+def functor_source(em: Emitter, pred, values: list = (), radix=(),
+                   n_groups: int = 1) -> str:
+    """`struct Src`: the row functor the kernel bodies are instantiated
+    around — `pred(i)`, `group(i)` (the clipped mixed-radix index over
+    `radix`, or 0) and `values(i, v)` (each value expression as float)."""
+    p, _ = em.emit(pred)
+    vals = [f"    v[{k}] = (float){em.emit(e)[0]};"
+            for k, e in enumerate(values)]
+    if radix:
+        terms = " + ".join(f"(int){em.col(g)[0]} * {_int_literal(st)}"
+                           for g, _d, st in radix)
+        group = [f"    const int g = {terms};",
+                 f"    return g < 0 ? 0 : (g > {n_groups - 1} ? "
+                 f"{n_groups - 1} : g);"]
+    else:
+        group = ["    return 0;"]
+    return "\n".join([
+        "struct Src {", *em.members(),
+        "  __device__ __forceinline__ bool pred(long long i) const {",
+        f"    return {p};", "  }",
+        "  __device__ __forceinline__ int group(long long i) const {",
+        *group, "  }",
+        "  __device__ __forceinline__ void values(long long i, float* v)"
+        " const {", *vals, "  }", "};"])
+
+
+def compact_pred_source(pred, em: Emitter) -> str:
+    """A library exporting `repro_pred_count`: pass 1 of the compaction
+    (`csrc/compact.cuh`) with the predicate evaluated in-kernel."""
+    return "\n".join([
+        _HEADER + '#include "compact.cuh"', "",
+        "namespace {", functor_source(em, pred), "}  // namespace", "",
+        f'extern "C" int repro_pred_count({_ARGS},',
+        "                                long long n, uint8_t* mask_out,",
+        "                                int* block_counts,"
+        " cudaStream_t stream) {",
+        "  Src s{};", *em.fill("s"),
+        "  return repro::launch_compact_count(s, n, mask_out, block_counts,"
+        " stream);",
+        "}", ""])
+
+
+def selective_agg_source(pred, values: list, radix, n_groups: int,
+                         em: Emitter) -> str:
+    """A library exporting `repro_selective_agg`: the aggregation kernel
+    (`csrc/filter_agg.cuh`) with predicate, values and the mixed-radix
+    group index evaluated in-kernel."""
+    nv = len(values)
+    return "\n".join([
+        _HEADER + '#include "filter_agg.cuh"', "",
+        "namespace {", functor_source(em, pred, values, radix, n_groups),
+        "}  // namespace", "",
+        f'extern "C" int repro_selective_agg({_ARGS},',
+        "    long long n, int G, int nb, float* part_sums, int* part_counts,",
+        "    int* part_total, float* sums, int* counts, int* total,",
+        "    cudaStream_t stream) {",
+        "  Src s{};", *em.fill("s"),
+        f"  return repro::launch_agg<Src, {nv}>(s, n, G, {nv}, nb, part_sums,"
+        " part_counts,",
+        "                                 part_total, sums, counts, total,"
+        " stream);",
+        "}", ""])

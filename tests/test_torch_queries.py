@@ -1,0 +1,251 @@
+"""The port end to end on the CPU: TPC-H q1, q3, q6 and q12 at `opt` and
+`opt-pallas` through `repro_torch.core.CompiledQuery(device="cpu")`,
+held against the reference `CompiledQuery` and the Volcano oracle with
+`test_queries.assert_same` (exact on ints, rtol 2e-3 on floats); plus the
+port's input set, kernel-call counts, data generation and import rules."""
+import ast
+import copy
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels.ops as ref_kops
+from repro.core import CompiledQuery as RefCompiledQuery
+from repro.core import VolcanoEngine
+from repro.core import preset as ref_preset
+from repro.relational.queries import PARAM_ALT_BINDINGS, PARAM_QUERIES
+from repro.relational.queries import QUERIES as REF_QUERIES
+from repro_torch.core import CompiledQuery, preset
+from repro_torch.kernels import ops
+from repro_torch.relational import Database
+from repro_torch.relational.queries import PARAM_QUERIES as PORT_PARAM_QUERIES
+from repro_torch.relational.queries import QUERIES
+from test_queries import SORT_INSENSITIVE, assert_same
+
+ROOT = Path(__file__).resolve().parents[1]
+SLICE = ["q1", "q3", "q6", "q12"]
+PRESETS = ["opt", "opt-pallas"]
+KERNELS = ["compact", "compact_pred", "selective_agg", "filter_agg"]
+# kernel entry points each query reaches at opt-pallas (sf 0.01)
+EXPECT_CALLS = {
+    "q1": {"filter_agg": 1},
+    "q3": {"compact": 2},
+    "q6": {"selective_agg": 1},
+    "q12": {"compact_pred": 1, "filter_agg": 1},
+}
+
+
+@pytest.fixture(scope="module")
+def pdb():
+    return Database.tpch(sf=0.01, seed=0)
+
+
+@pytest.fixture(scope="module")
+def oracle(db):
+    eng = VolcanoEngine(db)
+    return {q: eng.execute(REF_QUERIES[q]()) for q in SLICE}
+
+
+@pytest.fixture(scope="module")
+def reference(db):
+    """Lazily built reference runs: (q, preset) -> (CompiledQuery, result,
+    kernel-call counts)."""
+    cache = {}
+
+    def get(q, pname):
+        if (q, pname) not in cache:
+            calls = dict.fromkeys(KERNELS, 0)
+            saved = {k: getattr(ref_kops, f"{k}_query") for k in KERNELS}
+
+            def wrap(name, fn):
+                def g(*a, **k):
+                    calls[name] += 1
+                    return fn(*a, **k)
+                return g
+
+            for k, fn in saved.items():
+                setattr(ref_kops, f"{k}_query", wrap(k, fn))
+            try:
+                cq = RefCompiledQuery(REF_QUERIES[q](), db, ref_preset(pname))
+                res = cq.run()
+            finally:
+                for k, fn in saved.items():
+                    setattr(ref_kops, f"{k}_query", fn)
+            cache[q, pname] = (cq, res, calls)
+        return cache[q, pname]
+    return get
+
+
+def _port_run(q, db, pname):
+    before = dict(ops.calls)
+    cq = CompiledQuery(QUERIES[q](), db, preset(pname), device="cpu")
+    res = cq.run()
+    calls = {k: ops.calls[k] - before[k] for k in KERNELS}
+    return cq, res, calls
+
+
+@pytest.mark.parametrize("pname", PRESETS)
+@pytest.mark.parametrize("qname", SLICE)
+def test_port_matches_reference_and_oracle(pdb, oracle, reference, qname,
+                                           pname):
+    cq, got, _ = _port_run(qname, pdb, pname)
+    _, want, _ = reference(qname, pname)
+    insensitive = qname in SORT_INSENSITIVE
+    assert_same(got, want, insensitive)
+    assert_same(got, oracle[qname], insensitive)
+    assert cq.n_overflows == 0
+
+
+@pytest.mark.parametrize("pname", PRESETS)
+@pytest.mark.parametrize("qname", SLICE)
+def test_input_keys_match_reference(pdb, reference, qname, pname):
+    """Per-query specialized loading registers the same input set."""
+    cq, _, _ = _port_run(qname, pdb, pname)
+    ref_cq, _, _ = reference(qname, pname)
+    assert set(cq.inputs) == set(ref_cq.inputs)
+    for k, v in ref_cq.inputs.items():
+        assert cq.inputs[k].shape == np.asarray(v).shape, k
+
+
+@pytest.mark.parametrize("qname", SLICE)
+def test_kernel_calls_match_reference(pdb, reference, qname):
+    _, _, got = _port_run(qname, pdb, "opt-pallas")
+    _, _, want = reference(qname, "opt-pallas")
+    assert got == want
+    assert got == {**dict.fromkeys(KERNELS, 0), **EXPECT_CALLS[qname]}
+    _, _, plain = _port_run(qname, pdb, "opt")
+    assert not any(plain.values())
+
+
+@pytest.mark.parametrize("pname", PRESETS)
+def test_rebinding_params_matches_oracle(db, pdb, pname):
+    """q6 with runtime parameters: one staged program, two bindings (the
+    kernels take the parameters as scalars)."""
+    build, defaults = PORT_PARAM_QUERIES["q6"]
+    ref_build, _ = PARAM_QUERIES["q6"]
+    cq = CompiledQuery(build(), pdb, preset(pname), params=defaults,
+                       device="cpu")
+    eng = VolcanoEngine(db)
+    for b in (defaults, {**defaults, **PARAM_ALT_BINDINGS["q6"]}):
+        assert_same(cq.run(b), eng.execute(ref_build(), params=b), False)
+
+
+# the other queries whose opt plans need only the ported operators
+# (pk_gather joins, scalar and dense aggs); q4, q7 and q9full need the
+# exists_flag, generic and bucket_gather joins
+BEYOND = ["q5", "q9", "q10", "q13", "q14", "q17", "q18", "q19"]
+UNPORTED = ["q4", "q7", "q9full"]
+
+
+@pytest.fixture(scope="module")
+def beyond_oracle(db):
+    eng = VolcanoEngine(db)
+    return {q: eng.execute(REF_QUERIES[q]()) for q in BEYOND}
+
+
+@pytest.mark.parametrize("pname", PRESETS)
+@pytest.mark.parametrize("qname", BEYOND)
+def test_queries_beyond_the_slice_match_oracle(pdb, beyond_oracle, qname,
+                                               pname):
+    cq = CompiledQuery(QUERIES[qname](), pdb, preset(pname), device="cpu")
+    assert_same(cq.run(), beyond_oracle[qname], qname in SORT_INSENSITIVE)
+    assert cq.n_overflows == 0
+
+
+@pytest.mark.parametrize("qname", UNPORTED)
+def test_unported_strategies_raise(pdb, qname):
+    with pytest.raises(NotImplementedError):
+        CompiledQuery(QUERIES[qname](), pdb, preset("opt"), device="cpu")
+
+
+def test_tpch_generation_is_byte_identical(db, pdb):
+    assert sorted(db.tables) == sorted(pdb.tables)
+    for name, t in db.tables.items():
+        p = pdb.tables[name]
+        assert p.nrows == t.nrows
+        assert sorted(p.data) == sorted(t.data)
+        for c, arr in t.data.items():
+            assert p.data[c].dtype == arr.dtype, (name, c)
+            assert p.data[c].tobytes() == arr.tobytes(), (name, c)
+        for attr in ("vocabs", "word_vocabs"):
+            want, got = getattr(t, attr), getattr(p, attr)
+            assert sorted(got) == sorted(want)
+            for c in want:
+                np.testing.assert_array_equal(got[c], want[c])
+
+
+def test_from_arrays_gives_the_same_answers(db, oracle):
+    state = {name: {"columns": dict(t.data), "vocabs": dict(t.vocabs),
+                    "word_vocabs": dict(t.word_vocabs)}
+             for name, t in db.tables.items()}
+    fdb = Database.from_arrays(copy.deepcopy(state))
+    for q in SLICE:
+        got = CompiledQuery(QUERIES[q](), fdb, preset("opt-pallas"),
+                            device="cpu").run()
+        assert_same(got, oracle[q], q in SORT_INSENSITIVE)
+
+
+def _imports(path: Path) -> list[str]:
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append(node.module or "")
+    return out
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), f"{f}: {mod}"
+
+
+def test_default_device_is_cuda_and_never_falls_back(pdb, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CompiledQuery(QUERIES["q6"](), pdb, preset("opt"))
+
+
+def _chip_smoke(*args, cwd=ROOT, script=ROOT / "chip_smoke.py"):
+    return subprocess.run([sys.executable, str(script), *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=600)
+
+
+def test_chip_smoke_rehearsal_reports_every_kernel():
+    """The card script's phases, on the CPU at sf 0.01: every kernel
+    entry is reached, and the kernels line carries the contract's keys."""
+    r = _chip_smoke("--rehearse", "--sf", "0.01")
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith('{"kernels"')]
+    assert len(lines) == 1
+    rows = json.loads(lines[0])["kernels"]
+    assert [k["name"] for k in rows] == ["compact", "compact_pred",
+                                        "filter_agg", "selective_filter_agg"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in rows:
+        assert keys <= set(k)
+        assert (ROOT / k["source"]).exists()
+        assert (ROOT / k["replaces"].split(":")[0]).exists()
+        assert k["max_abs_err"] == 0.0 and k["bound_ms"] > 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
+    if not torch.cuda.is_available():
+        r = _chip_smoke()
+        assert r.returncode != 0 and '"ok"' not in r.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    r = _chip_smoke("--rehearse", cwd=tmp_path, script=lone)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
