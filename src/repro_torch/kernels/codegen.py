@@ -252,7 +252,8 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
                          em: Emitter) -> str:
     """A library exporting `repro_selective_agg`: the aggregation kernel
     (`csrc/filter_agg.cuh`) with predicate, values and the mixed-radix
-    group index evaluated in-kernel."""
+    group index evaluated in-kernel; a non-null `mask_out` receives the
+    predicate as one byte per row (the capacity form)."""
     nv = len(values)
     return "\n".join([
         _HEADER + '#include "filter_agg.cuh"', "",
@@ -261,10 +262,10 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
         f'extern "C" int repro_selective_agg({_ARGS},',
         "    long long n, int G, int nb, float* part_sums, int* part_counts,",
         "    int* part_total, float* sums, int* counts, int* total,",
-        "    cudaStream_t stream) {",
+        "    uint8_t* mask_out, cudaStream_t stream) {",
         "  Src s{};", *em.fill("s"),
         f"  return repro::launch_agg<Src, {nv}>(s, n, G, {nv}, nb, part_sums,"
         " part_counts,",
         "                                 part_total, sums, counts, total,"
-        " stream);",
+        " mask_out, stream);",
         "}", ""])

@@ -94,10 +94,9 @@ def _scan_write(lib, mask, n, counts, capacity, translate):
     return (idx, total, slot) if translate else (idx, total)
 
 
-def _compact_cuda(mask, capacity: int, translate: bool):
-    build.check_cuda_1d("mask", mask, torch.bool)
-    if not 0 < capacity < 2**31:
-        raise ValueError(f"capacity {capacity} out of range")
+def rank_mask_cuda(mask, capacity: int, translate: bool):
+    """The three compaction passes over a contiguous CUDA bool mask, with
+    no check and no count of launches: for the wrappers that own them."""
     lib = _lib()
     n = mask.shape[0]
     counts = torch.empty(max(lib.repro_compact_blocks(n), 1),
@@ -105,7 +104,18 @@ def _compact_cuda(mask, capacity: int, translate: bool):
     build.check(lib.repro_compact_count(
         build.ptr(mask), n, build.ptr(counts), build.stream_ptr(mask)),
         "compact count")
-    out = _scan_write(lib, mask, n, counts, capacity, translate)
+    return _scan_write(lib, mask, n, counts, capacity, translate)
+
+
+def _check_capacity(capacity: int):
+    if not 0 < capacity < 2**31:
+        raise ValueError(f"capacity {capacity} out of range")
+
+
+def _compact_cuda(mask, capacity: int, translate: bool):
+    build.check_cuda_1d("mask", mask, torch.bool)
+    _check_capacity(capacity)
+    out = rank_mask_cuda(mask, capacity, translate)
     launches["compact"] += 1
     return out
 
@@ -139,8 +149,7 @@ def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
     n = next(iter(cols.values())).shape[0]
     if any(t.shape[0] != n for t in cols.values()):
         raise ValueError("compact_pred columns differ in length")
-    if not 0 < capacity < 2**31:
-        raise ValueError(f"capacity {capacity} out of range")
+    _check_capacity(capacity)
     lib, plib = _lib(), _pred_lib(cols, scalars, pred_fn)
     dev = next(iter(cols.values())).device
     mask = torch.empty(n, dtype=torch.bool, device=dev)

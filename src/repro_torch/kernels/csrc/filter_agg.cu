@@ -27,7 +27,7 @@ int repro_filter_agg(const uint8_t* mask, const int* gidx,
   src.n_vals = n_vals;
   return repro::launch_agg<repro::ColumnSource<kMaxVals>, kMaxVals>(
       src, n, G, n_vals, nb, part_sums, part_counts, part_total, sums,
-      counts, total, stream);
+      counts, total, nullptr, stream);
 }
 
 }  // extern "C"

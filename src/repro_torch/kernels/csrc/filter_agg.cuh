@@ -4,7 +4,13 @@
 // holds at all.
 //
 // Replaces the Pallas kernels `filter_agg` (src/repro/kernels/
-// filter_agg.py:58) and `selective_filter_agg` (:156).  The Pallas kernel
+// filter_agg.py:58) and `selective_filter_agg` (:156).  With a compaction
+// capacity, `selective_filter_agg` also emits the predicate-true row ids
+// (and the key->slot vector) from its one pass; here the aggregation
+// stores its predicate as one byte per row and the count, scan and write
+// passes of compact.cuh rank that mask: 1 B/row written and read twice
+// beyond the bound (the columns, 4 B per idx slot, 4 B/row of slot_of),
+// which a ranking fused into this pass would save.  The Pallas kernel
 // keeps one (G, A) accumulator resident in VMEM across a grid that runs in
 // order, and adds each tile into it with a one-hot matmul on the MXU.  A
 // CUDA grid has no order and no resident accumulator, so:
@@ -67,10 +73,13 @@ struct ColumnSource {
   }
 };
 
-template <class Src, int NV>
+// kMask: also store the predicate in mask_out (a separate instantiation,
+// so the engine's form pays nothing for it).
+template <class Src, int NV, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
 agg_kernel(Src src, long long n, long long chunk, int G, int A, int reps,
-           float* part_sums, int* part_counts, int* part_total) {
+           float* part_sums, int* part_counts, int* part_total,
+           uint8_t* mask_out) {
   constexpr int kV = NV > 0 ? NV : 1;
   extern __shared__ float smem[];
   __shared__ int scratch[kAggBlock / kWarp];
@@ -92,7 +101,9 @@ agg_kernel(Src src, long long n, long long chunk, int G, int A, int reps,
   for (int k = 0; k < kV; ++k) acc[k] = 0.f;
   int acc_n = 0, cur = -1, kept = 0;
   for (long long i = start + threadIdx.x; i < end; i += kAggBlock) {
-    if (!src.pred(i)) continue;
+    const bool m = src.pred(i);
+    if constexpr (kMask) mask_out[i] = m ? 1 : 0;
+    if (!m) continue;
     ++kept;
     const int g = src.group(i);
     if (g < 0 || g >= G) continue;
@@ -164,11 +175,12 @@ __global__ void agg_finalize_kernel(const float* part_sums,
 }
 
 // `nb` must be agg_blocks(n); the partial buffers hold nb x G x A floats,
-// nb x G ints and nb ints.
+// nb x G ints and nb ints.  `mask_out` (nullable) receives the predicate
+// as one byte per row, for the compaction passes of compact.cuh to rank.
 template <class Src, int NV>
 int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
                int* part_counts, int* part_total, float* sums, int* counts,
-               int* total, cudaStream_t stream) {
+               int* total, uint8_t* mask_out, cudaStream_t stream) {
   const size_t per_rep = (size_t)G * (A + 1) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -184,16 +196,19 @@ int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
   if (reps < 1) reps = 1;
   const size_t smem = reps * per_rep;
   if (smem + kAggStaticSmem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  auto kernel = mask_out != nullptr ? agg_kernel<Src, NV, true>
+                                    : agg_kernel<Src, NV, false>;
   if (smem > budget) {
-    err = cudaFuncSetAttribute(agg_kernel<Src, NV>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   long long chunk = (n + nb - 1) / nb;
   if (chunk < 1) chunk = 1;
-  agg_kernel<Src, NV><<<nb, kAggBlock, smem, stream>>>(
-      src, n, chunk, G, A, (int)reps, part_sums, part_counts, part_total);
+  kernel<<<nb, kAggBlock, smem, stream>>>(
+      src, n, chunk, G, A, (int)reps, part_sums, part_counts, part_total,
+      mask_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int outs = G * A + G + 1;

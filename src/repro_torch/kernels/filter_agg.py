@@ -11,7 +11,11 @@ plain torch versions.
 
 Both return `(sums float32[G, A], counts int32[G])`; the selective form
 adds the exact number of predicate-true rows.  Rows whose group index is
-outside `[0, G)` count in that total but in no group.
+outside `[0, G)` count in that total but in no group.  Given a
+compaction `capacity > 0`, the selective form also returns the
+predicate-true row ids under the `compact` contract (`compact.py`), and
+with `translate` the key->slot vector: the aggregation stores its
+predicate as one byte per row and the compaction passes rank it.
 
 Which version runs is decided by the tensors' device alone: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel (see
@@ -25,8 +29,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, codegen
+from repro_torch.kernels.compact import compact_plain, rank_mask_cuda
 
-launches = {"filter_agg": 0, "selective_filter_agg": 0}
+launches = {"filter_agg": 0, "selective_filter_agg": 0,
+            "selective_filter_agg_capacity": 0}
 
 # one block holds G x (A + 1) 4-byte accumulators in shared memory; the
 # card's per-block opt-in limit is 227 KB, less the kernel's own scratch
@@ -59,8 +65,17 @@ def _column(v, n: int, dtype, device):
     return v.to(dtype).expand(n)
 
 
+def _check_compaction(capacity: int, translate: bool):
+    if not 0 <= capacity < 2**31:
+        raise ValueError(f"capacity {capacity} out of range")
+    if translate and capacity == 0:
+        raise ValueError("translate requires a compaction capacity")
+
+
 def selective_filter_agg_plain(cols: dict, scalars: list, pred_fn,
-                               value_fns: list, gidx_fn, n_groups: int):
+                               value_fns: list, gidx_fn, n_groups: int,
+                               capacity: int = 0, translate: bool = False):
+    _check_compaction(capacity, translate)
     first = next(iter(cols.values()))
     n, dev = first.shape[0], first.device
     m = _column(pred_fn(cols, scalars), n, torch.bool, dev)
@@ -69,7 +84,11 @@ def selective_filter_agg_plain(cols: dict, scalars: list, pred_fn,
     g = torch.zeros(n, dtype=torch.int32, device=dev) if gidx_fn is None \
         else _column(gidx_fn(cols, scalars), n, torch.int32, dev)
     sums, counts = filter_agg_plain(m, g, vals, n_groups)
-    return sums, counts, m.sum(dtype=torch.int32)
+    out = (sums, counts, m.sum(dtype=torch.int32))
+    if capacity > 0:
+        idx, _count, *slot = compact_plain(m, capacity, translate)
+        out += (idx, *slot)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +124,11 @@ def _check_fits(n_groups: int, n_vals: int):
 
 
 def _outputs(lib, n: int, n_groups: int, n_vals: int, device):
-    """(launch args after n: G, nb and the seven buffers, result tuple)."""
+    """(launch args after n: G, nb and the six buffers, the partials,
+    the result tuple).  The caller holds the partials until the launch
+    is queued: a freed buffer goes back to the allocator at once, and the
+    next allocation on the stream may take it while the kernel has yet to
+    write there."""
     nb = lib.repro_agg_blocks(n)
     f32, i32 = torch.float32, torch.int32
     parts = (torch.empty((nb, n_groups, n_vals), dtype=f32, device=device),
@@ -114,7 +137,7 @@ def _outputs(lib, n: int, n_groups: int, n_vals: int, device):
     res = (torch.empty((n_groups, n_vals), dtype=f32, device=device),
            torch.empty(n_groups, dtype=i32, device=device),
            torch.empty((), dtype=i32, device=device))
-    return [n_groups, nb] + [build.ptr(t) for t in parts + res], res
+    return [n_groups, nb] + [build.ptr(t) for t in parts + res], parts, res
 
 
 def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
@@ -133,13 +156,14 @@ def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
                          f"{lib.repro_filter_agg_max_vals()} value columns "
                          f"(got {len(values)})")
     _check_fits(n_groups, len(values))
-    args, (sums, counts, _total) = _outputs(lib, n, n_groups, len(values),
-                                            mask.device)
+    args, parts, (sums, counts, _total) = _outputs(
+        lib, n, n_groups, len(values), mask.device)
     ptrs = (ctypes.c_void_p * max(len(values), 1))(
         *[v.data_ptr() for v in values])
     build.check(lib.repro_filter_agg(
         build.ptr(mask), build.ptr(gidx), ptrs, len(values), n, *args,
         build.stream_ptr(mask)), "filter_agg")
+    del parts          # queued: the stream orders any reuse after the kernel
     launches["filter_agg"] += 1
     return sums, counts
 
@@ -164,14 +188,15 @@ def _selective_lib(cols, scalars, pred_fn, value_fns, gidx_fn, n_groups):
     if lib is None:
         lib = build.load(name, src)
         vp = ctypes.c_void_p
-        lib.repro_selective_agg.argtypes = [vp, vp, vp] + _AGG_ARGS
+        lib.repro_selective_agg.argtypes = [vp, vp, vp] + _AGG_ARGS + [vp]
         lib.repro_selective_agg.restype = ctypes.c_int
         _GEN_LIBS[src] = lib
     return lib
 
 
 def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
-                    gidx_fn, n_groups: int):
+                    gidx_fn, n_groups: int, capacity: int, translate: bool):
+    _check_compaction(capacity, translate)
     for name, t in cols.items():
         build.check_cuda_1d(name, t)
     n = next(iter(cols.values())).shape[0]
@@ -183,16 +208,23 @@ def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
     lib = _selective_lib(cols, scalars, pred_fn, value_fns, gidx_fn,
                          n_groups)
     dev = next(iter(cols.values())).device
-    args, res = _outputs(_lib(), n, n_groups, len(value_fns), dev)
+    args, parts, res = _outputs(_lib(), n, n_groups, len(value_fns), dev)
+    mask = torch.empty(n, dtype=torch.bool, device=dev) if capacity else None
     fp, ip = codegen.split_scalars(pred_fn.param_names, scalars)
     build.check(lib.repro_selective_agg(
         (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols.values()]),
         (ctypes.c_double * max(len(fp), 1))(*fp),
         (ctypes.c_longlong * max(len(ip), 1))(*ip),
-        n, *args, build.stream_ptr(next(iter(cols.values())))),
+        n, *args, build.ptr(mask),
+        build.stream_ptr(next(iter(cols.values())))),
         "selective_filter_agg")
-    launches["selective_filter_agg"] += 1
-    return res
+    del parts          # queued: the stream orders any reuse after the kernel
+    if not capacity:
+        launches["selective_filter_agg"] += 1
+        return res
+    idx, _count, *slot = rank_mask_cuda(mask, capacity, translate)
+    launches["selective_filter_agg_capacity"] += 1
+    return res + (idx, *slot)
 
 
 # ---------------------------------------------------------------------------
@@ -208,13 +240,17 @@ def filter_agg(mask, gidx, values: list, n_groups: int):
 
 
 def selective_filter_agg(cols: dict, scalars: list, pred_fn, value_fns: list,
-                         gidx_fn, n_groups: int):
-    """`(sums (G, A), counts (G,), total)` with the predicate (`pred_fn`),
-    the values (`value_fns`, `fused.TileFn`s) and the group index
-    (`gidx_fn`, a `fused.GroupIndex`, or None for one group) evaluated
-    in-kernel.  Every TileFn shares one positional parameter list."""
+                         gidx_fn, n_groups: int, *, capacity: int = 0,
+                         translate: bool = False):
+    """`(sums (G, A), counts (G,), total[, idx][, slot_of])` with the
+    predicate (`pred_fn`), the values (`value_fns`, `fused.TileFn`s) and
+    the group index (`gidx_fn`, a `fused.GroupIndex`, or None for one
+    group) evaluated in-kernel.  Every TileFn shares one positional
+    parameter list.  `capacity > 0` adds the compacted ids of the
+    predicate-true rows, `translate` their key->slot vector."""
     if next(iter(cols.values())).device.type == "cpu":
         return selective_filter_agg_plain(cols, scalars, pred_fn, value_fns,
-                                          gidx_fn, n_groups)
+                                          gidx_fn, n_groups, capacity,
+                                          translate)
     return _selective_cuda(cols, scalars, pred_fn, list(value_fns), gidx_fn,
-                           int(n_groups))
+                           int(n_groups), int(capacity), translate)

@@ -9,20 +9,28 @@ Without CUDA every test here skips (the decision is taken inside the
 float sums within rtol 1e-3, atol 1e-3 (the kernels and `index_add_` add
 in different orders).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels as lib
 from repro_torch.core import CompiledQuery, preset
 from repro_torch.core.expr import And, Cmp, Col, CodeIn, Const, Param
 from repro_torch.core.operators import fused as fu
-from repro_torch.kernels import compact as kc
-from repro_torch.kernels import filter_agg as kf
 from repro_torch.relational import Database
 from repro_torch.relational.queries import QUERIES
 from test_queries import SORT_INSENSITIVE, assert_same
 
 pytestmark = pytest.mark.cuda
+
+# by full name: the package exports functions named compact, filter_agg
+# and gather_join
+kc = importlib.import_module("repro_torch.kernels.compact")
+kf = importlib.import_module("repro_torch.kernels.filter_agg")
+kg = importlib.import_module("repro_torch.kernels.gather_join")
+kt = importlib.import_module("repro_torch.kernels.topk")
 
 
 @pytest.fixture
@@ -97,6 +105,91 @@ def test_generated_kernels(cuda, n):
     assert len(kc._PRED_LIBS) >= 1 and len(kf._GEN_LIBS) >= 1
 
 
+@pytest.mark.parametrize("n_groups,translate", [(7, False), (7, True),
+                                               (1, True)])
+@pytest.mark.parametrize("n", [1, 37, 5000, 1 << 20])
+def test_selective_capacity_kernel(cuda, n, n_groups, translate):
+    cols = _cols(n, cuda)
+    pred = fu.TileFn(_pred(), ["qty"])
+    vals = [fu.TileFn(Col("f0"), ["qty"]), fu.TileFn(Col("f1"), ["qty"])]
+    gidx = fu.GroupIndex([("c0", 7, 1)], 7) if n_groups == 7 else None
+    before = dict(kf.launches)
+    for cap in (1, 64, n + 1):
+        got = kf.selective_filter_agg(cols, [24.0], pred, vals, gidx,
+                                      n_groups, capacity=cap,
+                                      translate=translate)
+        want = kf.selective_filter_agg_plain(cols, [24.0], pred, vals, gidx,
+                                             n_groups, cap, translate)
+        assert len(got) == len(want) == 4 + translate
+        _same(got, want)
+    assert kf.launches["selective_filter_agg_capacity"] == \
+        before["selective_filter_agg_capacity"] + 3
+    assert kf.launches["selective_filter_agg"] == \
+        before["selective_filter_agg"]
+
+
+@pytest.mark.parametrize("k,c", [(25, 3), (10_000, 3), (58_112, 1),
+                                 (58_113, 1), (200_000, 2)])
+@pytest.mark.parametrize("n", [1, 37, 1 << 20])
+def test_gather_join_kernel(cuda, n, k, c):
+    """Tables staged in shared memory (up to 58,112 x 1 floats = 227 KB)
+    and read from device memory; keys out of range give zeros."""
+    rng = np.random.default_rng(n + k + c)
+    fk = torch.from_numpy(rng.integers(-2, k + 2, n).astype(np.int32)
+                          ).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)
+                             ).to(cuda)
+    assert kg.staged_in_shared_memory(table) == (k * c * 4 <= 227 * 1024)
+    before = kg.launches["gather_join"]
+    got = lib.gather_join(fk, table)
+    assert kg.launches["gather_join"] == before + 1
+    assert torch.equal(got, kg.gather_join_plain(fk, table))
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 1024])
+@pytest.mark.parametrize("n", [1, 37, 5000, 1 << 20])
+@pytest.mark.parametrize("ties", [False, True])
+def test_masked_topk_kernel(cuda, n, k, ties):
+    """Exact values and ids; with ties (eight distinct values) the lower
+    row comes first across the kernel's 4096-row blocks."""
+    rng = np.random.default_rng(n + k)
+    vals = rng.choice(np.float32([-1, 0, 0.5, 2, 3, 7, 9, 11]), n) if ties \
+        else rng.permutation(n).astype(np.float32)
+    vals = torch.from_numpy(vals).to(cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    before = kt.launches["masked_topk"]
+    got = lib.masked_topk(vals, mask, k)
+    assert kt.launches["masked_topk"] == before + 1
+    want = kt.masked_topk_plain(vals, mask, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_library_surface_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(3)
+    n = 70_000
+    mask = rng.random(n) < 0.4
+    gidx = rng.integers(0, 9, n).astype(np.int32)
+    vals = rng.normal(size=(n, 3)).astype(np.float32)
+    T = torch.from_numpy
+    got = lib.filter_agg(T(mask).to(cuda), T(gidx).to(cuda),
+                         T(vals).to(cuda), 9)
+    torch.testing.assert_close(got.cpu(), lib.filter_agg(T(mask), T(gidx),
+                                                         T(vals), 9),
+                               rtol=1e-3, atol=1e-3)
+    for g, w in zip(lib.compact_translate(T(mask).to(cuda), 4096),
+                    lib.compact_translate(T(mask), 4096)):
+        assert torch.equal(g.cpu(), w)
+    cols = _cols(n, cuda)
+    pred = fu.TileFn(_pred(), ["qty"])
+    vfns = [fu.TileFn(Col("f0"), ["qty"])]
+    got = lib.selective_filter_agg(cols, [24.0], pred, vfns, None, 1, 1,
+                                   capacity=512, translate=True)
+    want = lib.selective_filter_agg({k: v.cpu() for k, v in cols.items()},
+                                    [24.0], pred, vfns, None, 1, 1,
+                                    capacity=512, translate=True)
+    _same([g.cpu() for g in got], want)
+
+
 def test_cuda_tensor_never_takes_plain_path(cuda):
     """A kernel that cannot take its input raises instead of falling back."""
     mask = torch.ones(10, dtype=torch.bool, device=cuda)
@@ -105,6 +198,17 @@ def test_cuda_tensor_never_takes_plain_path(cuda):
     with pytest.raises(ValueError):
         kf.filter_agg(mask, torch.zeros(10, dtype=torch.int32, device=cuda),
                       [torch.ones(10, device=cuda)], 70000)
+    with pytest.raises(TypeError):
+        lib.gather_join(torch.zeros(10, dtype=torch.int64, device=cuda),
+                        torch.ones((4, 2), device=cuda))
+    with pytest.raises(ValueError):
+        lib.gather_join(torch.zeros(10, dtype=torch.int32, device=cuda),
+                        torch.ones((4, 2), device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        lib.masked_topk(torch.ones(10, device=cuda, dtype=torch.float64),
+                        mask, 3)
+    with pytest.raises(ValueError, match="1024"):
+        lib.masked_topk(torch.ones(10, device=cuda), mask, 1025)
 
 
 @pytest.fixture(scope="module")

@@ -179,6 +179,37 @@ def test_tpch_generation_is_byte_identical(db, pdb):
                 np.testing.assert_array_equal(got[c], want[c])
 
 
+def test_subnormal_literal_keeps_its_rows(db, pdb):
+    """The falsifying example hypothesis stored for the reference's
+    `test_system.py::test_random_query_equivalence`: `l_discount <
+    1.1754944e-39` (frac 1.175494351e-38 of the column's range), ungrouped,
+    no date bound.  The threshold is a float32 subnormal; the reference's
+    XLA on the CPU flushes it to zero and answers s = c = 0, while the
+    port keeps it and matches the Volcano oracle (ROADMAP Queue 3)."""
+    from repro.core import expr as RE
+    from repro.core import ir as rir
+    from repro_torch.core import expr as E
+    from repro_torch.core import ir as pir
+
+    t = pdb.table("lineitem")
+    lo, hi = t.stats["l_discount"].min, t.stats["l_discount"].max
+    thresh = float(lo + 1.175494351e-38 * (hi - lo))
+    assert 0 < np.float32(thresh) < np.finfo(np.float32).tiny
+
+    def plan(ir, X):
+        return ir.Agg(
+            ir.Select(ir.Scan("lineitem"),
+                      X.Cmp("<", X.col("l_discount"), X.lit(thresh))), [],
+            [ir.AggSpec("s", "sum", X.Arith("*", X.col("l_extendedprice"),
+                                            X.col("l_quantity"))),
+             ir.AggSpec("c", "count")])
+
+    want = VolcanoEngine(db).execute(plan(rir, RE))
+    got = CompiledQuery(plan(pir, E), pdb, preset("opt"), device="cpu").run()
+    assert int(want["c"][0]) > 0
+    assert_same(got, want, False)
+
+
 def test_from_arrays_gives_the_same_answers(db, oracle):
     state = {name: {"columns": dict(t.data), "vocabs": dict(t.vocabs),
                     "word_vocabs": dict(t.word_vocabs)}
@@ -229,8 +260,9 @@ def test_chip_smoke_rehearsal_reports_every_kernel():
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith('{"kernels"')]
     assert len(lines) == 1
     rows = json.loads(lines[0])["kernels"]
-    assert [k["name"] for k in rows] == ["compact", "compact_pred",
-                                        "filter_agg", "selective_filter_agg"]
+    assert [k["name"] for k in rows] == [
+        "compact", "compact_pred", "filter_agg", "selective_filter_agg",
+        "gather_join", "masked_topk", "selective_filter_agg_capacity"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in rows:
