@@ -13,9 +13,11 @@ result line):
   3. build every kernel library (one nvcc per source, all at once);
   4. hold each kernel against its plain torch version on the card, at the
      recorded SF 1 shapes and at edge cases (1 and 37 rows, no valid row,
-     overflow past the capacity, translate), and time kernel, plain
-     version and, where one exists, a single PyTorch call computing the
-     same function;
+     overflow past the capacity, translate), and compaction under many
+     tiles (2^22 + 37 rows at densities 0, 0.5 and 1, capacity below and
+     above the count, with and without translate, each call 20 times, for
+     a race in the look-back scan); time kernel, plain version and, where
+     one exists, a single PyTorch call computing the same function;
   4b. the kernel library's surface (`repro_torch.kernels`), whose
      gather_join, masked_topk and capacity form of selective_filter_agg
      the engine never calls: reset their launch counters, drive each entry
@@ -25,15 +27,24 @@ result line):
      compact_translate at q3's), read the counters, then hold every
      output and edge case against the plain versions — among them a
      predicate with a float32 subnormal literal, which a build that
-     flushed subnormals to zero would get wrong — and time them;
+     flushed subnormals to zero would get wrong, and top-k over 40,000
+     rows of special values (+-0, +-NaN with payloads, +-inf, subnormals,
+     -3e38; all rows masked, all equal, k > n) at k = 1, 10 and 1,024,
+     which must give the plain version's ids and bit patterns — and time
+     them;
   5. reset the launch counters, run the four queries at both presets on
      the card through `CompiledQuery(...).run()`, compare every answer
      with the CPU answer, and require every kernel to have launched under
      opt-pallas (and none under opt); then time each query;
   6. print one `{"kernels": [...]}` line, and last the result line.
 
+Every timed kernel shape is also profiled over 10 calls
+(`torch.profiler`): `device_ms` (device time of its kernels and memsets
+per call) and `kernels_per_call` stand beside the event-timed `ms`, so
+the host's share of a call shows.
+
 Tolerances: integer outputs (row ids, counts, slots), gathers and top-k
-values must match exactly.
+values must match exactly (top-k values bit for bit).
 Float sums may differ in summation order (the kernels add in shared
 memory and then per block in a fixed order; the plain versions add with
 `index_add_`), so they are held to rtol 1e-3, atol 1e-3; query answers to
@@ -83,6 +94,8 @@ ENGINE_KERNELS = ["compact", "compact_pred", "filter_agg",
 LIBRARY_KERNELS = ["gather_join", "masked_topk",
                    "selective_filter_agg_capacity"]
 SUBNORMAL = 1.1754944e-39        # a float32 subnormal: 2**-126 / 10
+PROFILED = ("device_ms", "kernels_per_call", "memsets_per_call",
+            "device_kernels")
 
 
 def log(*a):
@@ -219,6 +232,34 @@ def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def profile_call(fn, calls: int = 10) -> dict:
+    """Device time and device operations per call of `fn` over `calls`
+    calls under torch.profiler, after a warm-up: `device_ms` sums the
+    device time of its kernels and memsets; `kernels_per_call` counts
+    kernel launches, `memsets_per_call` memsets; `device_kernels` gives
+    each one's device ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    memsets = [e for e in dev if e.key.startswith("Memset")]
+    kernels = [e for e in dev if not e.key.startswith(("Memset", "Memcpy"))]
+    return {"device_ms": sum(e.self_device_time_total for e in dev)
+            / 1e3 / calls,
+            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "memsets_per_call": sum(e.count for e in memsets) / calls,
+            "device_kernels": {e.key[:60]: e.self_device_time_total / 1e3
+                               / calls for e in dev}}
+
+
 def max_err(got, want, what: str, exact: bool = False) -> float:
     """Max |got - want| over matching outputs; ints (and floats when
     `exact`) must be equal, other floats within KERNEL_TOL."""
@@ -263,6 +304,8 @@ def kernel_checks(records, dev, timed: bool):
             e["bytes"] = shape_bytes
             e.update({k: (time_ms(f) if (f is not None and timed) else None)
                       for k, f in timers.items()})
+            if timed:
+                e.update(profile_call(timers["ms"]))
 
     for q, entry, a, k in records:
         a, k = to(dev, a), to(dev, k)
@@ -385,6 +428,33 @@ def edge_checks(records, dev):
     return errs
 
 
+def many_tile_checks(dev) -> float:
+    """The look-back scan under many tiles: 2^22 + 37 rows (1,025 tiles of
+    4,096; 2^16 + 37 in a CPU rehearsal) at densities 0, 0.5 and 1,
+    capacity below and above the count, with and without translate, each
+    call repeated 20 times against one plain answer.  Returns the max
+    error (0: every repeat exact)."""
+    import torch
+
+    kc = kmod("compact")
+    g = torch.Generator().manual_seed(1)
+    n = (1 << 22) + 37 if dev.type == "cuda" else (1 << 16) + 37
+    err = 0.0
+    for p in (0.0, 0.5, 1.0):
+        mask = (torch.rand(n, generator=g) < p).to(dev)
+        count = int(mask.sum())
+        for cap in (max(count // 3, 1), count + 5):
+            for tr in (False, True):
+                want = kc.compact_plain(mask, cap, tr)
+                for r in range(20 if mask.is_cuda else 1):
+                    err = max(err, max_err(
+                        kc.compact(mask, cap, translate=tr), want,
+                        f"compact many tiles p={p} cap={cap} tr={tr} #{r}"))
+    log(f"compaction under {-(-n // kc.TILE_ROWS)} tiles: every repeat "
+        "equal to the plain version")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 4b: the kernel library's surface
 # ---------------------------------------------------------------------------
@@ -403,6 +473,49 @@ def subnormal_operands(db, dev):
             for c in ("l_discount", "l_extendedprice")}
     return (cols, TileFn(Cmp("<", Col("l_discount"), Const(SUBNORMAL)), []),
             [TileFn(Col("l_extendedprice"), [])])
+
+
+# float32 bit patterns the order must place: +-0, +-NaN (with payloads,
+# quiet and signalling), +-inf, +-subnormals, -3e38 and its neighbours
+SPECIAL_BITS = [0x00000000, 0x80000000, 0x7fc00000, 0xffc00000, 0x7fc00001,
+                0xffc00005, 0x7f800001, 0xff800001, 0x7f800000, 0xff800000,
+                0x00000001, 0x80000001, 0x007fffff, 0x807fffff, 0xff61b1e6,
+                0xff61b1e5, 0xff61b1e7]
+
+
+def special_topk_cases(rng, dev_t):
+    """(vals, mask, k, label): 40,000 rows (ten 4,096-row tiles), a third
+    of them special values scattered among repeated ordinary ones, at
+    k = 1, 10 and 1,024, with a random mask, every row masked, every
+    value equal; and k > n."""
+    import numpy as np
+
+    n = 40_000
+    vals = rng.choice(np.float32([-2.5, 0.5, 1.0, 3e38, -1.0]), n)
+    at = rng.random(n) < 0.35
+    vals[at] = rng.choice(np.array(SPECIAL_BITS, np.uint32),
+                          int(at.sum())).view(np.float32)
+    mask = rng.random(n) < 0.8
+    cases = []
+    for k in (1, 10, 1024):
+        cases += [(dev_t(vals), dev_t(mask), k, f"scattered, k={k}"),
+                  (dev_t(vals), dev_t(np.zeros(n, bool)), k,
+                   f"all masked, k={k}"),
+                  (dev_t(np.full(n, np.float32(0.5))), dev_t(mask), k,
+                   f"all equal, k={k}")]
+    cases.append((dev_t(vals[:700]), dev_t(mask[:700]), 1024,
+                  "k > n (700 rows, k=1024)"))
+    return cases
+
+
+def same_bits(got, want, what: str) -> float:
+    """Top-k outputs equal bit for bit (NaN payloads included)."""
+    import torch
+
+    check(torch.equal(got[1], want[1]), f"{what}: ids differ")
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          f"{what}: value bits differ")
+    return 0.0
 
 
 def pow2_at_least(n: int) -> int:
@@ -557,6 +670,12 @@ def library_phase(db, records, dev, subnormal, timed: bool):
         note("masked_topk", max_err(lib.masked_topk(v, m, k),
                                     kt.masked_topk_plain(v, m, k),
                                     f"masked_topk edge {what}", exact=True))
+    for v, m, k, what in special_topk_cases(rng, dev_t):
+        note("masked_topk", same_bits(lib.masked_topk(v, m, k),
+                                      kt.masked_topk_plain(v, m, k),
+                                      f"masked_topk special {what}"))
+    log("masked_topk special values: ids and bit patterns equal to the "
+        "plain version at k = 1, 10, 1024")
     for n in (1, 37, 5000):
         sub = {c: v[:n].contiguous() for c, v in cols.items()}
         for cap in (1, 8, 4096):
@@ -575,6 +694,8 @@ def library_phase(db, records, dev, subnormal, timed: bool):
         row.update({k: (time_ms(f) if timed and f is not None else None)
                     for k, f in (("ms", kernel), ("plain_ms", plain),
                                  ("library_ms", library))})
+        if timed:
+            row.update(profile_call(kernel))
         return row
 
     timed_rows = {name: [] for name in LIBRARY_KERNELS}
@@ -615,6 +736,7 @@ def library_phase(db, records, dev, subnormal, timed: bool):
                      "ms": main["ms"], "plain_ms": main["plain_ms"],
                      "library_ms": main["library_ms"],
                      "shape": main["shape"], "timed": timed_rows[name]}
+        out[name].update({k: main[k] for k in PROFILED if k in main})
     return out, {k: v for k, v in errs.items() if k in ENGINE_KERNELS}
 
 
@@ -692,6 +814,8 @@ def main() -> int:
     checks = kernel_checks(records, dev, timed=not args.rehearse)
     for name, err in edge_checks(records, dev).items():
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
+    checks["compact"]["max_abs_err"] = max(checks["compact"]["max_abs_err"],
+                                           many_tile_checks(dev))
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4b -----------------------------------------------------------
@@ -759,6 +883,9 @@ def main() -> int:
             "launches": launched[name] if name in launched
             else c["launches"],
             "max_abs_err": c["max_abs_err"], "ms": c.get("ms"),
+            "device_ms": c.get("device_ms"),
+            "kernels_per_call": c.get("kernels_per_call"),
+            "memsets_per_call": c.get("memsets_per_call"),
             "plain_ms": c.get("plain_ms"),
             "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": c.get("library_ms"),

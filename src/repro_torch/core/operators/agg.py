@@ -98,8 +98,9 @@ def _fused_stage(a: ir.Agg, f: Frame, pred, ctx: StageCtx):
         if spec.fn == "sum":
             return sums_m[row, names.index(spec.name)]
         if spec.fn == "count":
-            return cnt[row].to(torch.int32)
-        return sums_m[row, names.index(spec.name)] / cnt[row].clamp_min(1.0)
+            return cnt[row]
+        return (sums_m[row, names.index(spec.name)]
+                / cnt[row].clamp_min(1).to(torch.float32))
 
     if not a.group_by:
         return Frame({sp.name: Binding(agg_col(sp, slice(0, 1)), "num")
@@ -175,9 +176,10 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
                 if spec.fn == "sum":
                     v = ksums[spec.name][0:1]
                 elif spec.fn == "count":
-                    v = cnt[0:1].to(torch.int32)
+                    v = cnt[0:1]
                 else:  # avg
-                    v = ksums[spec.name][0:1] / cnt[0:1].clamp_min(1.0)
+                    v = ksums[spec.name][0:1] / cnt[0:1].clamp_min(1).to(
+                        torch.float32)
                 cols[spec.name] = Binding(v, "num")
             return Frame(cols)
         cols = {}
@@ -235,7 +237,7 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
                                    torch.where(mask, vals[spec.name], 0),
                                    idx, D))
         if spec.fn in ("count", "avg"):
-            counts[spec.name] = (kernel_counts.to(torch.int32)
+            counts[spec.name] = (kernel_counts
                                  if kernel_counts is not None else
                                  be.segment_sum(mi32, idx, D))
         if spec.fn == "min":

@@ -128,9 +128,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> ctypes.c_void_p:
+    """The current stream of `t`'s device as a raw `cudaStream_t` (the
+    call inductor's launchers use; `torch.cuda.current_stream` would build
+    a Stream object on every launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -233,18 +233,21 @@ def functor_source(em: Emitter, pred, values: list = (), radix=(),
 
 
 def compact_pred_source(pred, em: Emitter) -> str:
-    """A library exporting `repro_pred_count`: pass 1 of the compaction
-    (`csrc/compact.cuh`) with the predicate evaluated in-kernel."""
+    """A library exporting `repro_compact_pred`: the predicate evaluated
+    in-kernel and stored as bytes, then ranked by the one-pass compaction
+    (`csrc/compact.cuh`), in the workspace layout described there."""
     return "\n".join([
         _HEADER + '#include "compact.cuh"', "",
         "namespace {", functor_source(em, pred), "}  // namespace", "",
-        f'extern "C" int repro_pred_count({_ARGS},',
-        "                                long long n, uint8_t* mask_out,",
-        "                                int* block_counts,"
+        f'extern "C" int repro_compact_pred({_ARGS},',
+        "                                 long long n, int* ws,"
+        " long long ws_words,",
+        "                                 int cap, int translate,"
         " cudaStream_t stream) {",
         "  Src s{};", *em.fill("s"),
-        "  return repro::launch_compact_count(s, n, mask_out, block_counts,"
-        " stream);",
+        "  return repro::compact_pred_into(s, n, ws, ws_words, cap,"
+        " translate != 0,",
+        "                                  stream);",
         "}", ""])
 
 

@@ -62,6 +62,8 @@ def compact_pred_plain(cols: dict, scalars: list, pred_fn, capacity: int,
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
+TILE_ROWS = 4096        # csrc/compact.cuh: kCompactRows
+
 _STATIC: list = []
 
 
@@ -69,42 +71,44 @@ def _lib():
     if not _STATIC:
         lib = build.load("compact", build.static_source("compact"))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.repro_compact_blocks.argtypes = [ll]
-        lib.repro_compact_count.argtypes = [vp, ll, vp, vp]
-        lib.repro_compact_scan_write.argtypes = [vp, ll, vp, vp, vp, vp, i,
-                                                 vp, vp]
-        for fn in (lib.repro_compact_blocks, lib.repro_compact_count,
-                   lib.repro_compact_scan_write):
+        lib.repro_compact_tile_rows.argtypes = []
+        lib.repro_compact.argtypes = [vp, ll, vp, ll, i, i, vp]
+        for fn in (lib.repro_compact_tile_rows, lib.repro_compact):
             fn.restype = ctypes.c_int
+        if lib.repro_compact_tile_rows() != TILE_ROWS:
+            raise RuntimeError("compact.cuh and compact.py disagree on the "
+                               "tile")
         _STATIC.append(lib)
     return _STATIC[0]
 
 
-def _scan_write(lib, mask, n, counts, capacity, translate):
-    dev = mask.device
-    idx = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    offsets = torch.empty_like(counts)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev) if translate \
-        else None
-    build.check(lib.repro_compact_scan_write(
-        build.ptr(mask), n, build.ptr(counts), build.ptr(offsets),
-        build.ptr(total), build.ptr(idx), capacity, build.ptr(slot),
-        build.stream_ptr(mask)), "compact scan/write")
-    return (idx, total, slot) if translate else (idx, total)
+def workspace_head(n: int) -> int:
+    """int32 words before `idx` in the workspace: two per tile of status,
+    the ticket, the total (`csrc/compact.cuh`)."""
+    return 2 * (-(-n // TILE_ROWS)) + 2
+
+
+def _workspace(n: int, capacity: int, translate: bool, pred: bool, device):
+    """(workspace, outputs as views of it): one allocation per call."""
+    head = workspace_head(n)
+    slot = n if translate else 0
+    ws = torch.empty(head + capacity + slot + ((n + 3) // 4 if pred else 0),
+                     dtype=torch.int32, device=device)
+    out = (ws[head:head + capacity], ws[head - 1])
+    if translate:
+        out += (ws[head + capacity:head + capacity + n],)
+    return ws, out
 
 
 def rank_mask_cuda(mask, capacity: int, translate: bool):
-    """The three compaction passes over a contiguous CUDA bool mask, with
-    no check and no count of launches: for the wrappers that own them."""
-    lib = _lib()
+    """The one-launch compaction of a contiguous CUDA bool mask, with no
+    check and no count of launches: for the wrappers that own them."""
     n = mask.shape[0]
-    counts = torch.empty(max(lib.repro_compact_blocks(n), 1),
-                         dtype=torch.int32, device=mask.device)
-    build.check(lib.repro_compact_count(
-        build.ptr(mask), n, build.ptr(counts), build.stream_ptr(mask)),
-        "compact count")
-    return _scan_write(lib, mask, n, counts, capacity, translate)
+    ws, out = _workspace(n, capacity, translate, False, mask.device)
+    build.check(_lib().repro_compact(
+        build.ptr(mask), n, build.ptr(ws), ws.shape[0], capacity,
+        int(translate), build.stream_ptr(mask)), "compact")
+    return out
 
 
 def _check_capacity(capacity: int):
@@ -121,7 +125,7 @@ def _compact_cuda(mask, capacity: int, translate: bool):
 
 
 def pred_source(cols: dict, scalars: list, pred_fn) -> tuple[str, str]:
-    """(library name, generated source) of the predicate's count pass."""
+    """(library name, generated source) of the predicate's compaction."""
     em = codegen.Emitter(codegen.column_types(cols),
                          codegen.param_types(pred_fn.param_names, scalars))
     return "compact_pred", codegen.compact_pred_source(pred_fn.expr, em)
@@ -135,9 +139,9 @@ def _pred_lib(cols: dict, scalars: list, pred_fn):
     lib = _PRED_LIBS.get(src)
     if lib is None:
         lib = build.load(name, src)
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.repro_pred_count.argtypes = [vp, vp, vp, ll, vp, vp, vp]
-        lib.repro_pred_count.restype = ctypes.c_int
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_compact_pred.argtypes = [vp, vp, vp, ll, vp, ll, i, i, vp]
+        lib.repro_compact_pred.restype = ctypes.c_int
         _PRED_LIBS[src] = lib
     return lib
 
@@ -146,23 +150,20 @@ def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
                        translate: bool):
     for name, t in cols.items():
         build.check_cuda_1d(name, t)
-    n = next(iter(cols.values())).shape[0]
+    first = next(iter(cols.values()))
+    n = first.shape[0]
     if any(t.shape[0] != n for t in cols.values()):
         raise ValueError("compact_pred columns differ in length")
     _check_capacity(capacity)
-    lib, plib = _lib(), _pred_lib(cols, scalars, pred_fn)
-    dev = next(iter(cols.values())).device
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    counts = torch.empty(max(lib.repro_compact_blocks(n), 1),
-                         dtype=torch.int32, device=dev)
+    plib = _pred_lib(cols, scalars, pred_fn)
+    ws, out = _workspace(n, capacity, translate, True, first.device)
     fp, ip = codegen.split_scalars(pred_fn.param_names, scalars)
-    build.check(plib.repro_pred_count(
+    build.check(plib.repro_compact_pred(
         (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols.values()]),
         (ctypes.c_double * max(len(fp), 1))(*fp),
         (ctypes.c_longlong * max(len(ip), 1))(*ip),
-        n, build.ptr(mask), build.ptr(counts), build.stream_ptr(mask)),
-        "compact_pred count")
-    out = _scan_write(lib, mask, n, counts, capacity, translate)
+        n, build.ptr(ws), ws.shape[0], capacity, int(translate),
+        build.stream_ptr(first)), "compact_pred")
     launches["compact_pred"] += 1
     return out
 

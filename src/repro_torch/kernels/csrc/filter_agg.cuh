@@ -7,8 +7,8 @@
 // filter_agg.py:58) and `selective_filter_agg` (:156).  With a compaction
 // capacity, `selective_filter_agg` also emits the predicate-true row ids
 // (and the key->slot vector) from its one pass; here the aggregation
-// stores its predicate as one byte per row and the count, scan and write
-// passes of compact.cuh rank that mask: 1 B/row written and read twice
+// stores its predicate as one byte per row and the one-launch compaction
+// of compact.cuh ranks that mask: 1 B/row written and read once more
 // beyond the bound (the columns, 4 B per idx slot, 4 B/row of slot_of),
 // which a ranking fused into this pass would save.  The Pallas kernel
 // keeps one (G, A) accumulator resident in VMEM across a grid that runs in
@@ -176,7 +176,7 @@ __global__ void agg_finalize_kernel(const float* part_sums,
 
 // `nb` must be agg_blocks(n); the partial buffers hold nb x G x A floats,
 // nb x G ints and nb ints.  `mask_out` (nullable) receives the predicate
-// as one byte per row, for the compaction passes of compact.cuh to rank.
+// as one byte per row, for the compaction of compact.cuh to rank.
 template <class Src, int NV>
 int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
                int* part_counts, int* part_total, float* sums, int* counts,

@@ -15,7 +15,7 @@ outside `[0, G)` count in that total but in no group.  Given a
 compaction `capacity > 0`, the selective form also returns the
 predicate-true row ids under the `compact` contract (`compact.py`), and
 with `translate` the key->slot vector: the aggregation stores its
-predicate as one byte per row and the compaction passes rank it.
+predicate as one byte per row and the one-launch compaction ranks it.
 
 Which version runs is decided by the tensors' device alone: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel (see

@@ -106,13 +106,12 @@ def selective_filter_agg(cols, scalars, pred_fn, vals_fns, gidx_fn, n_vals,
 
 def filter_agg_query(mask, gidx, value_cols, n_groups):
     """Aggregate a list of 1-D value columns and count the rows per group
-    in one kernel pass.  Returns (sums (G, A), counts (G,)) in float32,
-    as the reference's ones-column count does."""
+    in one kernel pass.  Returns (sums (G, A) float32, counts (G,) int32):
+    the count is exact, where the reference's float32 ones-column count
+    is exact only up to 2^24 rows per group."""
     calls["filter_agg"] += 1
-    sums, counts = _filter_agg(mask, gidx.to(torch.int32),
-                               [v.to(torch.float32) for v in value_cols],
-                               n_groups)
-    return sums, counts.to(torch.float32)
+    return _filter_agg(mask, gidx.to(torch.int32),
+                       [v.to(torch.float32) for v in value_cols], n_groups)
 
 
 def compact_query(mask, capacity, *, translate=False):
@@ -132,9 +131,8 @@ def compact_pred_query(cols, scalars, pred_fn, capacity, *, translate=False):
 def selective_agg_query(cols, scalars, pred_fn, value_fns, gidx_fn,
                         n_groups):
     """The q6/q19-class pipeline: in-kernel predicate + grouped
-    aggregation.  Returns (sums (G, A), counts (G,) float32,
-    total_count)."""
+    aggregation.  Returns (sums (G, A) float32, counts (G,) int32,
+    total_count int32), every count exact."""
     calls["selective_agg"] += 1
-    sums, counts, total = _selective_filter_agg(
-        cols, scalars, pred_fn, value_fns, gidx_fn, n_groups)
-    return sums, counts.to(torch.float32), total
+    return _selective_filter_agg(cols, scalars, pred_fn, value_fns, gidx_fn,
+                                 n_groups)

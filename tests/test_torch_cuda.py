@@ -164,6 +164,60 @@ def test_masked_topk_kernel(cuda, n, k, ties):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# float32 bit patterns the order must place: +-0, +-NaN (with payloads),
+# +-inf, subnormals, -3e38 and its neighbours
+SPECIAL_BITS = np.array(
+    [0x00000000, 0x80000000, 0x7fc00000, 0xffc00000, 0x7fc00001, 0xffc00005,
+     0x7f800001, 0xff800001, 0x7f800000, 0xff800000, 0x00000001, 0x80000001,
+     0x007fffff, 0x807fffff, 0xff61b1e6, 0xff61b1e5, 0xff61b1e7],
+    np.uint32)
+
+
+def _special(n, rng):
+    """n values, a third of them special bit patterns scattered over the
+    rows, the rest a few repeated ordinary values (ties)."""
+    vals = rng.choice(np.float32([-2.5, 0.5, 1, 3e38, -1]), n)
+    at = rng.random(n) < 0.35
+    vals[at] = rng.choice(SPECIAL_BITS, int(at.sum())).view(np.float32)
+    return vals
+
+
+@pytest.mark.parametrize("k", [1, 10, 1024])
+@pytest.mark.parametrize("case", ["scattered", "all_masked", "all_equal",
+                                  "k_above_n"])
+def test_masked_topk_kernel_special_values(cuda, k, case):
+    """The total order of `jax.lax.top_k` on the card: ids equal and
+    values bitwise equal to the plain version, over 40,000 rows (ten
+    4096-row tiles) with the specials crossing tile and block edges."""
+    rng = np.random.default_rng(k)
+    n = 700 if case == "k_above_n" else 40_000
+    vals = _special(n, rng)
+    if case == "all_equal":
+        vals[:] = np.float32(0.5)
+    mask = np.zeros(n, bool) if case == "all_masked" else rng.random(n) < 0.8
+    v, m = torch.from_numpy(vals).to(cuda), torch.from_numpy(mask).to(cuda)
+    got = lib.masked_topk(v, m, k)
+    want = kt.masked_topk_plain(v, m, k)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("translate", [False, True])
+def test_compact_kernel_many_tiles(cuda, p, translate):
+    """1,025 tiles of the look-back scan, capacity below and above the
+    count, each call 20 times: a look-back race shows as a rare wrong
+    offset."""
+    n = (1 << 22) + 37
+    rng = np.random.default_rng(int(10 * p))
+    mask = torch.from_numpy(rng.random(n) < p).to(cuda)
+    count = int(mask.sum())
+    for cap in (max(count // 3, 1), count + 5):
+        want = kc.compact_plain(mask, cap, translate)
+        for _ in range(20):
+            _same(kc.compact(mask, cap, translate=translate), want)
+
+
 def test_library_surface_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(3)
     n = 70_000

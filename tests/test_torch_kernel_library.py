@@ -8,6 +8,11 @@ Tolerances: gathers, top-k values and ids, row ids, counts and slots are
 exact; float sums rtol 1e-5, atol 1e-4 (`test_torch_kernels.RTOL/ATOL`:
 the two packages add in different orders).
 """
+import ctypes
+import shutil
+import subprocess
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ from repro.core.operators import fused as ref_fused
 from repro_torch.core import expr as PE
 from repro_torch.core.operators import fused as fu
 from repro_torch.kernels import build, codegen
+from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.topk import MAX_K
 from test_torch_kernels import (ATOL, RTOL, T, _columns, _operands, _pnames,
                                 _preds, _values)
@@ -161,6 +167,167 @@ def test_masked_topk_values_at_or_below_the_sentinel_get_no_row():
 def test_masked_topk_rejects_unsupported_k(k):
     with pytest.raises(ValueError, match="1024"):
         PK.masked_topk(torch.ones(4), torch.ones(4, dtype=torch.bool), k)
+
+
+# -- IEEE total order: NaN, signed zeros, subnormals, infinities ----------
+
+# float32 bit patterns: +-0, +-NaN (with payloads, quiet and signalling),
+# +-inf, +-subnormals, -3e38 and its two neighbours
+SPECIAL_BITS = np.array(
+    [0x00000000, 0x80000000, 0x7fc00000, 0xffc00000, 0x7fc00001, 0xffc00005,
+     0x7f800001, 0xff800001, 0x7f800000, 0xff800000, 0x00000001, 0x80000001,
+     0x007fffff, 0x807fffff, 0xff61b1e6, 0xff61b1e5, 0xff61b1e7],
+    np.uint32)
+
+
+def _topk_bitwise(vals, mask, k):
+    """The port's top-k against the oracle: ids exactly, values bit for
+    bit (NaN payloads included)."""
+    got = PK.masked_topk(T(vals), T(mask), k)
+    want = RK.ref.masked_topk_ref(jnp.asarray(vals), jnp.asarray(mask), k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  np.asarray(want[0]).view(np.uint32))
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 12])
+@pytest.mark.parametrize("mask", ["all", "alternate", "none"])
+def test_masked_topk_signed_zero_and_nan_order(k, mask):
+    """[-0, 0, -0, 1, nan, 0, -nan, inf]: the oracle's ids are
+    [4, 7, 3, 1, 5, 0, 2, 6] (+NaN first, +0 before -0, -NaN last and
+    kept); k = 12 pads past n = 8, and the padding (-3e38) comes before
+    -NaN."""
+    vals = np.float32([-0.0, 0.0, -0.0, 1.0, np.nan, 0.0, -np.nan, np.inf])
+    m = {"all": np.ones(8, bool), "alternate": np.arange(8) % 2 == 0,
+         "none": np.zeros(8, bool)}[mask]
+    _, ids = _topk_bitwise(vals, m, k)
+    if mask == "all":
+        want = [4, 7, 3, 1, 5, 0, 2, 6] if k <= 8 else \
+            [4, 7, 3, 1, 5, 0, 2, -1, -1, -1, -1, 6]
+        np.testing.assert_array_equal(ids.numpy(), want[:k])
+
+
+@pytest.mark.parametrize("n,k", [(5000, 1), (5000, 10), (5000, 1024),
+                                 (300, 1024), (9001, 100)])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_masked_topk_special_values_match_oracle(n, k, density):
+    """Special bit patterns scattered among repeated ordinary values, so
+    every special value has ties across many rows."""
+    rng = np.random.default_rng(n + k + int(10 * density))
+    vals = rng.choice(np.float32([-2.5, 0.5, 1.0, 3e38, -1.0]), n)
+    at = rng.random(n) < 0.35
+    vals[at] = rng.choice(SPECIAL_BITS, int(at.sum())).view(np.float32)
+    _topk_bitwise(vals, rng.random(n) < density, k)
+
+
+# -- the radix select's key and digit walk, compiled as host C++ ---------
+
+_SHIM = r"""
+#include "radix_select.cuh"
+extern "C" {
+void keys_of(const unsigned* bits, long long n, unsigned* out) {
+  for (long long i = 0; i < n; ++i) out[i] = repro::order_key(bits[i]);
+}
+void bits_of(const unsigned* keys, long long n, unsigned* out) {
+  for (long long i = 0; i < n; ++i) out[i] = repro::key_bits(keys[i]);
+}
+int pass_bins(int pass) { return 1 << repro::radix_bits(pass); }
+// the pass's digit of each key, -1 where the key leaves the prefix
+void digits_of(const unsigned* keys, long long n, unsigned prefix, int pass,
+               int* out) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = repro::radix_match(keys[i], prefix, pass)
+                 ? (int)repro::radix_digit(keys[i], pass) : -1;
+}
+// topk.cu's pick, lane by lane: 32 chunks of bins from the top, the
+// chunk where the rank falls, then walk_down inside it
+void select_step(const unsigned* hist, int pass, unsigned* state) {
+  const int bins = 1 << repro::radix_bits(pass), per = bins / 32;
+  repro::RadixState s{state[0], state[1], state[2]};
+  unsigned excl = 0;
+  for (int lane = 0; lane < 32; ++lane) {
+    const int lo = bins - per * (lane + 1);
+    unsigned c = 0;
+    for (int d = 0; d < per; ++d) c += hist[lo + d];
+    if (excl < s.rank && s.rank <= excl + c) {
+      unsigned before;
+      const int d = repro::walk_down(hist + lo, per, s.rank - excl, &before);
+      repro::radix_advance(&s, pass, (unsigned)(lo + d), excl + before);
+      break;
+    }
+    excl += c;
+  }
+  state[0] = s.prefix; state[1] = s.rank; state[2] = s.above;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def radix_shim(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler to build radix_select.cuh")
+    d = tmp_path_factory.mktemp("radix")
+    (d / "shim.cpp").write_text(_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
+                    str(CSRC), "-o", str(d / "shim.so"), str(d / "shim.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "shim.so"))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.keys_of.argtypes = lib.bits_of.argtypes = [vp, ll, vp]
+    lib.digits_of.argtypes = [vp, ll, ctypes.c_uint, i, vp]
+    lib.select_step.argtypes = [vp, i, vp]
+    return lib
+
+
+def _call(fn, a, out_dtype, *extra):
+    a = np.ascontiguousarray(a)
+    out = np.empty(a.shape[0], out_dtype)
+    fn(a.ctypes.data, a.shape[0], *extra, out.ctypes.data)
+    return out
+
+
+def test_order_key_orders_special_values_as_top_k(radix_shim):
+    """Sorting by the header's key, descending (ties to the lower row),
+    gives `jax.lax.top_k`'s order of the special values, and key_bits
+    inverts the key."""
+    bits = np.concatenate([SPECIAL_BITS, SPECIAL_BITS[::-1],
+                           np.float32([1.5, -1.5, 3e38]).view(np.uint32)])
+    keys = _call(radix_shim.keys_of, bits, np.uint32)
+    order = np.argsort(-keys.astype(np.int64), kind="stable")
+    _, want = jax.lax.top_k(jnp.asarray(bits.view(np.float32)), len(bits))
+    np.testing.assert_array_equal(order, np.asarray(want))
+    np.testing.assert_array_equal(_call(radix_shim.bits_of, keys, np.uint32),
+                                  bits)
+
+
+@pytest.mark.parametrize("case", ["random", "all_equal", "all_masked",
+                                  "special"])
+@pytest.mark.parametrize("k", [1, 10, 1024])
+def test_radix_walk_finds_the_kth_key(radix_shim, case, k):
+    """Three passes over numpy histograms of the header's digits, each
+    followed by the header's walk, find the k-th largest key T and the
+    count of keys above it, as a sort does."""
+    rng = np.random.default_rng(k)
+    n = 20_000
+    vals = {"random": rng.normal(size=n).astype(np.float32),
+            "all_equal": np.full(n, 2.5, np.float32),
+            "all_masked": np.full(n, -3e38, np.float32),
+            "special": rng.choice(SPECIAL_BITS, n).view(np.float32)}[case]
+    keys = _call(radix_shim.keys_of, vals.view(np.uint32), np.uint32)
+    state = np.array([0, k, 0], np.uint32)
+    for p in range(3):
+        digits = _call(radix_shim.digits_of, keys, np.int32,
+                       ctypes.c_uint(int(state[0])), p)
+        bins = radix_shim.pass_bins(p)
+        hist = np.bincount(digits[digits >= 0], minlength=bins
+                           ).astype(np.uint32)
+        radix_shim.select_step(hist.ctypes.data, p, state.ctypes.data)
+    t = np.sort(keys)[::-1][k - 1]
+    assert state[0] == t
+    assert state[2] == (keys > t).sum()
+    assert state[1] == k - state[2] and (keys == t).sum() >= state[1]
 
 
 # ---------------------------------------------------------------------------

@@ -175,6 +175,19 @@ def test_filter_agg_all_false_mask():
     assert not sums.any() and not counts.any()
 
 
+def test_filter_agg_query_counts_past_2_24():
+    """2^24 + 3 valid rows in one group count 16,777,219, as int32: the
+    engine's count is exact where a float32 count (the reference's ones
+    column) stops at 2^24."""
+    n = (1 << 24) + 3
+    sums, counts = ops.filter_agg_query(
+        torch.ones(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int32),
+        [], 1)
+    assert counts.dtype == torch.int32 and sums.shape == (1, 0)
+    assert int(counts[0]) == 16_777_219
+    assert float(np.float32(n)) != n      # what a float32 count would lose
+
+
 @pytest.mark.parametrize("pred", ["q6like", "codes", "params", "year",
                                   "const"])
 @pytest.mark.parametrize("grouped", [False, True])

@@ -210,6 +210,22 @@ def test_subnormal_literal_keeps_its_rows(db, pdb):
     assert_same(got, want, False)
 
 
+def test_q1_count_order_is_exact_int32(pdb, oracle):
+    """q1's count column comes back as int32 at both presets (the kernel's
+    exact count at opt-pallas, no float32 detour) and equals the Volcano
+    oracle's."""
+    for pname in PRESETS:
+        got = CompiledQuery(QUERIES["q1"](), pdb, preset(pname),
+                            device="cpu").run()
+        assert got["count_order"].dtype == np.int32, pname
+        want = np.asarray(oracle["q1"]["count_order"])
+        order = np.lexsort((got["l_linestatus"], got["l_returnflag"]))
+        worder = np.lexsort((oracle["q1"]["l_linestatus"],
+                             oracle["q1"]["l_returnflag"]))
+        np.testing.assert_array_equal(got["count_order"][order],
+                                      want[worder])
+
+
 def test_from_arrays_gives_the_same_answers(db, oracle):
     state = {name: {"columns": dict(t.data), "vocabs": dict(t.vocabs),
                     "word_vocabs": dict(t.word_vocabs)}
@@ -264,7 +280,8 @@ def test_chip_smoke_rehearsal_reports_every_kernel():
         "compact", "compact_pred", "filter_agg", "selective_filter_agg",
         "gather_join", "masked_topk", "selective_filter_agg_capacity"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "kernels_per_call"}
     for k in rows:
         assert keys <= set(k)
         assert (ROOT / k["source"]).exists()
