@@ -16,8 +16,13 @@ result line):
      overflow past the capacity, translate), and compaction under many
      tiles (2^22 + 37 rows at densities 0, 0.5 and 1, capacity below and
      above the count, with and without translate, each call 20 times, for
-     a race in the look-back scan); time kernel, plain version and, where
-     one exists, a single PyTorch call computing the same function;
+     a race in the look-back scan); filter_agg called twice at each
+     recorded shape, whose sums must be bit-identical (register regime);
+     a NaN in a row the mask drops and an infinity in a kept row through
+     filter_agg and the generated selective kernel, at G = 3 and 9, bit
+     for bit against the plain version and the oracle; time kernel,
+     plain version and, where one exists, a single PyTorch call
+     computing the same function;
   4b. the kernel library's surface (`repro_torch.kernels`), whose
      gather_join, masked_topk and capacity form of selective_filter_agg
      the engine never calls: reset their launch counters, drive each entry
@@ -30,8 +35,11 @@ result line):
      flushed subnormals to zero would get wrong, and top-k over 40,000
      rows of special values (+-0, +-NaN with payloads, +-inf, subnormals,
      -3e38; all rows masked, all equal, k > n) at k = 1, 10 and 1,024,
-     which must give the plain version's ids and bit patterns — and time
-     them;
+     which must give the plain version's ids and bit patterns, and
+     gather_join at C = 1, 2, 3 and 5 with fk a view at an odd offset
+     and NaN and infinity in the table, in both of its ways to read the
+     table, bit for bit — and time them, gather_join at 10,000 x 3 also
+     with each way forced;
   5. reset the launch counters, run the four queries at both presets on
      the card through `CompiledQuery(...).run()`, compare every answer
      with the CPU answer, and require every kernel to have launched under
@@ -45,10 +53,11 @@ the host's share of a call shows.
 
 Tolerances: integer outputs (row ids, counts, slots), gathers and top-k
 values must match exactly (top-k values bit for bit).
-Float sums may differ in summation order (the kernels add in shared
-memory and then per block in a fixed order; the plain versions add with
-`index_add_`), so they are held to rtol 1e-3, atol 1e-3; query answers to
-the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
+Float sums may differ in summation order (the kernels add per thread,
+warp and block in a fixed order, or with shared-memory atomics above the
+register regime; the plain versions add with `index_add_`), so they are
+held to rtol 1e-3, atol 1e-3, except where a check says bit for bit;
+query answers to the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
 
 `--rehearse` runs the same phases on the CPU (plain versions only, no
 build, no launch checks) at `--sf`, to test the script without a card;
@@ -306,6 +315,8 @@ def kernel_checks(records, dev, timed: bool):
                       for k, f in timers.items()})
             if timed:
                 e.update(profile_call(timers["ms"]))
+                log(f"{name} at {n} rows: {e['ms']} ms, device "
+                    f"{json.dumps(e['device_kernels'])}")
 
     for q, entry, a, k in records:
         a, k = to(dev, a), to(dev, k)
@@ -317,6 +328,14 @@ def kernel_checks(records, dev, timed: bool):
             want = kf.filter_agg_plain(mask, gidx, vals, G)
             err = max_err(got, want, f"filter_agg {q}")
             A = len(vals)
+            # the main path's shapes aggregate in registers: a second
+            # call must give the same sums bit for bit
+            again = kf.filter_agg(mask, gidx, vals, G)
+            check(torch.equal(got[0], again[0])
+                  and torch.equal(got[1], again[1]),
+                  f"filter_agg {q}: two calls differ")
+            log(f"filter_agg {q} (G={G}, A={A}, {mask.shape[0]} rows): "
+                "two calls bit-identical")
             vm = torch.where(mask[:, None], torch.stack(vals, 1), 0.0)
             lib_out = torch.zeros((G, A), device=mask.device)
             note("filter_agg", err,
@@ -426,6 +445,68 @@ def edge_checks(records, dev):
             errs["selective_filter_agg"] = max(
                 errs.get("selective_filter_agg", 0.0), e)
     return errs
+
+
+# a NaN in a row the mask drops (row 4), an infinity in a kept row of
+# group 1 (row 2): the oracle keeps each out of every other group's sum
+NF_MASK = [1, 0, 1, 1, 0, 1, 1, 1]
+NF_GIDX = [0, 1, 1, 0, 0, 2, 2, 1]
+NF_SUMS = [[6.0, 8.0], [float("inf"), 20.0], [22.0, 24.0]]
+
+
+def nonfinite_cases(dev):
+    """(label, G, columns, predicate, values, group index): the eight rows
+    after `pad` NaN rows that the mask drops, for G = 3 (register regime)
+    and G = 9 (shared-memory regime)."""
+    import torch
+
+    from repro_torch.core.expr import Cmp, Col, Const
+    from repro_torch.core.operators.fused import GroupIndex, TileFn
+
+    cases = []
+    for pad in (0, 4093):
+        vals = torch.arange(16, dtype=torch.float32).reshape(8, 2)
+        vals[4, 1], vals[2, 0] = float("nan"), float("inf")
+        vals = torch.cat([torch.full((pad, 2), float("nan")), vals])
+        cols = {"m": torch.tensor([0] * pad + NF_MASK, dtype=torch.int32),
+                "g": torch.tensor([0] * pad + NF_GIDX, dtype=torch.int32),
+                "v0": vals[:, 0].contiguous(), "v1": vals[:, 1].contiguous()}
+        cols = {k: v.to(dev) for k, v in cols.items()}
+        for G in (3, 9):
+            cases.append((f"pad {pad}, G={G}", G, cols,
+                          TileFn(Cmp("==", Col("m"), Const(1)), []),
+                          [TileFn(Col("v0"), []), TileFn(Col("v1"), [])],
+                          GroupIndex([("g", G, 1)], G)))
+    return cases
+
+
+def nonfinite_checks(dev) -> None:
+    """filter_agg and the generated selective kernel on the non-finite
+    rows: sums bit for bit equal to the plain version on the same device
+    and to the oracle's, counts exact."""
+    import torch
+
+    kf = kmod("filter_agg")
+    want3 = torch.tensor(NF_SUMS, dtype=torch.float32)
+    for label, G, cols, pred, vfns, gfn in nonfinite_cases(dev):
+        mask = cols["m"] == 1
+        vals = [cols["v0"], cols["v1"]]
+        want = torch.zeros((G, 2), dtype=torch.float32)
+        want[:3] = want3
+        for what, got, plain in [
+                ("filter_agg", kf.filter_agg(mask, cols["g"], vals, G),
+                 kf.filter_agg_plain(mask, cols["g"], vals, G)),
+                ("selective_filter_agg",
+                 kf.selective_filter_agg(cols, [], pred, vfns, gfn, G),
+                 kf.selective_filter_agg_plain(cols, [], pred, vfns, gfn,
+                                               G))]:
+            bits = got[0].view(torch.int32)
+            check(torch.equal(bits, plain[0].view(torch.int32))
+                  and torch.equal(bits.cpu(), want.view(torch.int32))
+                  and torch.equal(got[1], plain[1]),
+                  f"{what} non-finite {label}: sums differ")
+    log("non-finite rows: filter_agg and the selective kernel equal the "
+        "plain version and the oracle bit for bit (G = 3 and 9)")
 
 
 def many_tile_checks(dev) -> float:
@@ -642,7 +723,7 @@ def library_phase(db, records, dev, subnormal, timed: bool):
     log(f"subnormal literal: {s_true} rows kept by kernel and plain version")
 
     # -- edges -------------------------------------------------------------
-    smem_rows = 227 * 1024 // 4        # the largest table staged, C = 1
+    smem_rows = 227 * 1024 // 4        # one block's shared memory, C = 1
     for t in (gathers["c_nationkey into 25x3"][1],
               gathers["l_partkey into part x 2"][1],
               table(smem_rows, 1), table(smem_rows + 1, 1)):
@@ -653,6 +734,17 @@ def library_phase(db, records, dev, subnormal, timed: bool):
             note("gather_join", max_err(
                 [lib.gather_join(fk, t)], [kg.gather_join_plain(fk, t)],
                 f"gather_join edge K={k} n={fk.shape[0]}", exact=True))
+    for c in (1, 2, 3, 5):
+        k, n = 1000, 4 * 5000 + 3
+        fk = dev_t(rng.integers(-2, k + 2, n + 1).astype(np.int32))[1:]
+        t = rng.normal(size=(k, c)).astype(np.float32)
+        t[1, 0], t[2, c - 1] = np.nan, np.inf
+        t = dev_t(t)
+        check(torch.equal(lib.gather_join(fk, t).view(torch.int32),
+                          kg.gather_join_plain(fk, t).view(torch.int32)),
+              f"gather_join C={c}, fk at an odd offset: differs")
+    log("gather_join at C = 1, 2, 3, 5, fk a view at an odd offset, NaN "
+        "and infinity in the table: bit for bit")
     ties = dev_t(np.full(3 * 4096 + 1, 7.0, np.float32))
     odd = dev_t(rng.choice(np.float32([-np.inf, 1.0, -3.0e38, 2.0]), 10_000))
     few = dev_t(rng.permutation(1000) < 5)
@@ -702,9 +794,7 @@ def library_phase(db, records, dev, subnormal, timed: bool):
     for s, (fk, t) in gathers.items():
         n, (k, c) = fk.shape[0], t.shape
         timed_rows["gather_join"].append(timing(
-            s + (" (shared memory)" if timed and
-                 kg.staged_in_shared_memory(t) else ""),
-            n, 4 * n + 4 * k * c + 4 * n * c,
+            s, n, 4 * n + 4 * k * c + 4 * n * c,
             lambda: lib.gather_join(fk, t),
             lambda: kg.gather_join_plain(fk, t),
             lambda: torch.index_select(t, 0, fk)))
@@ -802,6 +892,8 @@ def main() -> int:
         s_cols, s_pred, s_vals = subnormal
         sources += [kc.pred_source(s_cols, [], s_pred),
                     kf.selective_source(s_cols, [], s_pred, s_vals, None, 1)]
+        sources += [kf.selective_source(cols, [], pred, vfns, gfn, G)
+                    for _l, G, cols, pred, vfns, gfn in nonfinite_cases(dev)]
         for p in build.build_all(sources):
             ptx = [ln for ln in p.with_suffix(".log").read_text().splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -816,6 +908,7 @@ def main() -> int:
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
     checks["compact"]["max_abs_err"] = max(checks["compact"]["max_abs_err"],
                                            many_tile_checks(dev))
+    nonfinite_checks(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4b -----------------------------------------------------------
@@ -898,7 +991,7 @@ def main() -> int:
         return 0
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -255,8 +255,10 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
                          em: Emitter) -> str:
     """A library exporting `repro_selective_agg`: the aggregation kernel
     (`csrc/filter_agg.cuh`) with predicate, values and the mixed-radix
-    group index evaluated in-kernel; a non-null `mask_out` receives the
-    predicate as one byte per row (the capacity form)."""
+    group index evaluated in-kernel, instantiated for its own number of
+    groups and values (so for one of the two regimes only); a non-null
+    `mask_out` receives the predicate as one byte per row (the capacity
+    form)."""
     nv = len(values)
     return "\n".join([
         _HEADER + '#include "filter_agg.cuh"', "",
@@ -267,8 +269,7 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
         "    int* part_total, float* sums, int* counts, int* total,",
         "    uint8_t* mask_out, cudaStream_t stream) {",
         "  Src s{};", *em.fill("s"),
-        f"  return repro::launch_agg<Src, {nv}>(s, n, G, {nv}, nb, part_sums,"
-        " part_counts,",
-        "                                 part_total, sums, counts, total,"
-        " mask_out, stream);",
+        f"  return repro::launch_agg<Src, {nv}, {n_groups}>(",
+        f"      s, n, G, {nv}, nb, part_sums, part_counts, part_total, sums,",
+        "      counts, total, mask_out, stream);",
         "}", ""])

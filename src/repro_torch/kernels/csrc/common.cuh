@@ -11,9 +11,18 @@ namespace repro {
 
 constexpr int kWarp = 32;
 
+// Sums over the warp, valid in lane 0: a shuffle tree, so a float sum is
+// added in the same order in every call.
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o /= 2) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
 

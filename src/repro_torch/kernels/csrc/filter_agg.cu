@@ -1,6 +1,6 @@
 // Masked grouped aggregation over precomputed columns (plain C interface,
 // loaded with ctypes).  The in-kernel-predicate form is generated per
-// query by repro_torch/kernels/codegen.py around the same kernel.
+// query by repro_torch/kernels/codegen.py around the same kernels.
 #include "filter_agg.cuh"
 
 namespace {
@@ -9,7 +9,9 @@ constexpr int kMaxVals = 16;
 
 extern "C" {
 
-int repro_agg_blocks(long long n) { return repro::agg_blocks(n); }
+int repro_agg_blocks(long long n, int G, int A) {
+  return repro::agg_blocks(n, G, A);
+}
 
 int repro_filter_agg_max_vals() { return kMaxVals; }
 

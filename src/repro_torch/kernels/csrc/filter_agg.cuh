@@ -1,7 +1,10 @@
 // Masked grouped aggregation: per group g, the sum of every value column
 // over the rows where the predicate holds and the group index is g, the
 // number of such rows, and the exact number of rows where the predicate
-// holds at all.
+// holds at all.  A value of a row the predicate drops, or of another
+// group, never reaches a group's sum; a kept NaN or infinity reaches its
+// own group's sum only (the reference oracle's `where`, not its Pallas
+// kernel's one-hot product: see agg_regs.cuh).
 //
 // Replaces the Pallas kernels `filter_agg` (src/repro/kernels/
 // filter_agg.py:58) and `selective_filter_agg` (:156).  With a compaction
@@ -9,49 +12,70 @@
 // (and the key->slot vector) from its one pass; here the aggregation
 // stores its predicate as one byte per row and the one-launch compaction
 // of compact.cuh ranks that mask: 1 B/row written and read once more
-// beyond the bound (the columns, 4 B per idx slot, 4 B/row of slot_of),
-// which a ranking fused into this pass would save.  The Pallas kernel
-// keeps one (G, A) accumulator resident in VMEM across a grid that runs in
-// order, and adds each tile into it with a one-hot matmul on the MXU.  A
-// CUDA grid has no order and no resident accumulator, so:
-//
-//   * each block reduces a contiguous chunk of rows into (G, A) float
-//     sums and G int counts in shared memory — up to eight replicas, one
-//     per warp, to spread the shared-memory atomics; G x (A + 1) words
-//     must fit one block's shared memory (the wrapper raises otherwise);
-//   * a thread keeps a running sum in registers while consecutive rows of
-//     its stride fall into the same group and flushes it to shared memory
-//     when the group changes (once per thread when G = 1);
-//   * each block writes its partial (replicas summed in a fixed order),
-//     and a second pass sums the partials over blocks in block order.
-//     The cross-block order is fixed; the order of the shared-memory
-//     atomics inside a block is not, so float sums may differ in the last
-//     bits from run to run.  Counts are exact integers.
+// beyond the bound.  The Pallas kernel keeps one (G, A) accumulator
+// resident in VMEM across a grid that runs in order.  A CUDA grid has no
+// order and no resident accumulator, so every block writes a partial and
+// a second launch adds the partials.
 //
 // Bound on the card: bytes.  The pass reads every input column once
 // (mask 1 B/row, group index 4 B/row and 4 B/row per value column, or the
 // columns a generated predicate and its values name) and writes G x A
-// floats; the partials add 4 x (G x A + G + 1) bytes per block, which is
-// small beside the columns at the engine's shapes (G <= 4096, <= 1024
-// blocks).
+// floats.  Two regimes, chosen from G and A alone (register_regime):
+//
+//   * register regime (G <= 8 and A <= 8, or G = 1 and A <= 16; every
+//     call of the engine's main path): each thread keeps its own
+//     (G, A) sums and G counts in registers and adds four consecutive
+//     rows at a time, read as float4 / int4 / uchar4 where the column is
+//     aligned for it; a row adds to a group by a predicated add
+//     (RegAcc::add), so no atomics at all.  Each warp adds its threads'
+//     accumulators by a shuffle tree, the block its warps in warp order,
+//     and one partial per block goes out.  Rows go to threads by a fixed
+//     grid stride over a grid that depends on n and the card only, so
+//     the same inputs give bit-identical sums in every call.
+//   * shared-memory regime (everything larger, G x (A + 1) words within
+//     one block's shared memory): each block reduces a contiguous chunk
+//     of rows into (G, A) sums in shared memory, up to eight replicas,
+//     one per warp; a thread keeps a running sum in registers while
+//     consecutive rows of its stride fall into the same group and flushes
+//     it with shared-memory atomics when the group changes.  The order of
+//     those atomics is not fixed, so float sums may differ in the last
+//     bits from run to run.
+//
+// Both regimes end in agg_finalize_kernel, which adds the partials over
+// blocks as a tree in a fixed order.  Counts and the predicate total are
+// exact int32 throughout.
 #pragma once
 
+#include "agg_regs.cuh"
 #include "common.cuh"
 
 namespace repro {
 
 constexpr int kAggBlock = 256;
-constexpr int kAggRowsPerBlock = 4096;   // fewest rows a block is given
+// fewest rows a block is given, in the shared and the register regime
+// (one quad a thread, so a call of a few hundred thousand rows still
+// spreads over the whole card)
+constexpr int kAggRowsPerBlock = 4096;
+constexpr int kRegRowsPerBlock = 4 * kAggBlock;
 constexpr int kAggMaxBlocks = 1024;      // partials of the second pass
 constexpr int kAggMaxReplicas = 8;
 constexpr size_t kAggDefaultSmem = 48 * 1024;
 constexpr size_t kAggStaticSmem = 1024;      // >= the kernel's static scratch
 
-inline int agg_blocks(long long n) {
-  long long b = (n + kAggRowsPerBlock - 1) / kAggRowsPerBlock;
+// The number of partials a call may write: its partial buffers hold
+// that many blocks' sums.  The register regime launches at most as many
+// blocks as are resident on the card at once.
+inline int agg_blocks(long long n, int G, int A) {
+  const long long per =
+      register_regime(G, A) ? kRegRowsPerBlock : kAggRowsPerBlock;
+  long long b = (n + per - 1) / per;
   if (b < 1) b = 1;
   if (b > kAggMaxBlocks) b = kAggMaxBlocks;
   return (int)b;
+}
+
+__device__ __forceinline__ bool aligned_to(const void* p, unsigned bytes) {
+  return ((size_t)p & (bytes - 1)) == 0;
 }
 
 // The precomputed form: a bool mask, an int32 group index and up to
@@ -73,13 +97,160 @@ struct ColumnSource {
   }
 };
 
+// One row for the register regime, AM values (zeros past the source's).
+template <class Src, int AM>
+__device__ __forceinline__ void load_row(const Src& s, long long i, bool* m,
+                                         int* g, float (&v)[AM]) {
+#pragma unroll
+  for (int k = 0; k < AM; ++k) v[k] = 0.f;
+  *m = s.pred(i);
+  *g = s.group(i);
+  s.values(i, v);
+}
+
+template <int MAXA, int AM>
+__device__ __forceinline__ void load_row(const ColumnSource<MAXA>& s,
+                                         long long i, bool* m, int* g,
+                                         float (&v)[AM]) {
+  *m = s.mask[i] != 0;
+  *g = __ldg(s.gidx + i);
+#pragma unroll
+  for (int k = 0; k < AM; ++k) {
+    v[k] = 0.f;
+    if (k < s.n_vals) v[k] = __ldg(s.cols[k] + i);
+  }
+}
+
+// Rows i .. i + 3, all below n.  A generated source evaluates its
+// expressions row by row; the precomputed columns are read 16 bytes (the
+// mask 4 bytes) at a time wherever the column's address allows it (a
+// column may be a view at any row offset).
+template <class Src, int AM>
+__device__ __forceinline__ void load_quad(const Src& s, long long i,
+                                          bool* m, int* g, float (*v)[AM]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) load_row(s, i + r, m + r, g + r, v[r]);
+}
+
+template <int MAXA, int AM>
+__device__ __forceinline__ void load_quad(const ColumnSource<MAXA>& s,
+                                          long long i, bool* m, int* g,
+                                          float (*v)[AM]) {
+  if (aligned_to(s.mask + i, 4)) {
+    const uchar4 u = __ldg(reinterpret_cast<const uchar4*>(s.mask + i));
+    m[0] = u.x != 0; m[1] = u.y != 0; m[2] = u.z != 0; m[3] = u.w != 0;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[r] = s.mask[i + r] != 0;
+  }
+  if (aligned_to(s.gidx + i, 16)) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(s.gidx + i));
+    g[0] = q.x; g[1] = q.y; g[2] = q.z; g[3] = q.w;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) g[r] = __ldg(s.gidx + i + r);
+  }
+#pragma unroll
+  for (int k = 0; k < AM; ++k) {
+    if (k >= s.n_vals) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r][k] = 0.f;
+    } else if (aligned_to(s.cols[k] + i, 16)) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(s.cols[k] + i));
+      v[0][k] = q.x; v[1][k] = q.y; v[2][k] = q.z; v[3][k] = q.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r][k] = __ldg(s.cols[k] + i + r);
+    }
+  }
+}
+
 // kMask: also store the predicate in mask_out (a separate instantiation,
 // so the engine's form pays nothing for it).
+template <class Src, int GM, int AM, bool kMask>
+__global__ void __launch_bounds__(kAggBlock)
+agg_reg_kernel(Src src, long long n, int G, int A, float* part_sums,
+               int* part_counts, int* part_total, uint8_t* mask_out) {
+  constexpr int kWarps = kAggBlock / kWarp;
+  __shared__ float s_sum[kWarps][GM * AM];
+  __shared__ int s_cnt[kWarps][GM + 1];
+  RegAcc<GM, AM> acc;
+  acc.zero();
+
+  const long long quads = n / 4;
+  const long long stride = (long long)gridDim.x * kAggBlock;
+  const long long t = (long long)blockIdx.x * kAggBlock + threadIdx.x;
+  for (long long q = t; q < quads; q += stride) {
+    const long long i = 4 * q;
+    bool m[4];
+    int g[4];
+    float v[4][AM];
+    load_quad(src, i, m, g, v);
+    if constexpr (kMask) {
+      if (aligned_to(mask_out + i, 4)) {
+        *reinterpret_cast<uchar4*>(mask_out + i) =
+            make_uchar4(m[0], m[1], m[2], m[3]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mask_out[i + r] = m[r] ? 1 : 0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc.add(m[r], g[r], G, v[r]);
+  }
+  if (t < n - 4 * quads) {          // the last n % 4 rows
+    const long long i = 4 * quads + t;
+    bool m;
+    int g;
+    float v[AM];
+    load_row(src, i, &m, &g, v);
+    if constexpr (kMask) mask_out[i] = m ? 1 : 0;
+    acc.add(m, g, G, v);
+  }
+
+  // warps by shuffle trees, then the block's warps in warp order
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int j = 0; j < GM; ++j) {
+    if (j >= G) break;
+#pragma unroll
+    for (int k = 0; k < AM; ++k) {
+      if (k >= A) break;
+      const float s = warp_sum(acc.sum[j][k]);
+      if (lane == 0) s_sum[warp][j * AM + k] = s;
+    }
+    const int c = warp_sum(acc.cnt[j]);
+    if (lane == 0) s_cnt[warp][j] = c;
+  }
+  const int kept = warp_sum(acc.kept);
+  if (lane == 0) s_cnt[warp][GM] = kept;
+  __syncthreads();
+
+  const long long b = blockIdx.x;
+  const int GA = G * A;
+  for (int o = threadIdx.x; o <= GA + G; o += kAggBlock) {
+    if (o < GA) {
+      const int at = (o / A) * AM + o % A;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_sum[w][at];
+      part_sums[b * GA + o] = s;
+    } else {
+      const int at = o < GA + G ? o - GA : GM;
+      int c = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) c += s_cnt[w][at];
+      if (o < GA + G) part_counts[b * G + (o - GA)] = c;
+      else part_total[b] = c;
+    }
+  }
+}
+
 template <class Src, int NV, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
-agg_kernel(Src src, long long n, long long chunk, int G, int A, int reps,
-           float* part_sums, int* part_counts, int* part_total,
-           uint8_t* mask_out) {
+agg_shared_kernel(Src src, long long n, long long chunk, int G, int A,
+                  int reps, float* part_sums, int* part_counts,
+                  int* part_total, uint8_t* mask_out) {
   constexpr int kV = NV > 0 ? NV : 1;
   extern __shared__ float smem[];
   __shared__ int scratch[kAggBlock / kWarp];
@@ -149,38 +320,93 @@ agg_kernel(Src src, long long n, long long chunk, int G, int A, int reps,
   if (threadIdx.x == 0) part_total[b] = t;
 }
 
-// Second pass: one thread per output, summing the block partials in
-// block order.
-__global__ void agg_finalize_kernel(const float* part_sums,
-                                    const int* part_counts,
-                                    const int* part_total, int nb, int G,
-                                    int A, float* sums, int* counts,
-                                    int* total) {
-  const int GA = G * A;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < GA) {
-    float s = 0.f;
-    for (int b = 0; b < nb; ++b) s += part_sums[(long long)b * GA + j];
-    sums[j] = s;
-  } else if (j < GA + G) {
-    const int g = j - GA;
-    int c = 0;
-    for (int b = 0; b < nb; ++b) c += part_counts[(long long)b * G + g];
-    counts[g] = c;
-  } else if (j == GA + G) {
-    int t = 0;
-    for (int b = 0; b < nb; ++b) t += part_total[b];
-    *total = t;
+constexpr int kFinWarps = 32;
+
+// Adds p[w s], p[(w + 32) s], ... below p[nb s] in that order, loading
+// four at a time so that four loads are in flight.
+template <class T>
+__device__ __forceinline__ T strided_sum(const T* p, int w, int nb,
+                                         long long s) {
+  T acc = 0;
+  int b = w;
+  for (; b + 3 * kFinWarps < nb; b += 4 * kFinWarps) {
+    T x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = p[(b + r * kFinWarps) * s];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc += x[r];
+  }
+  for (; b < nb; b += kFinWarps) acc += p[b * s];
+  return acc;
+}
+
+// Second launch: the G x A sums, G counts and the total over nb partials.
+// A block takes 32 outputs, one per lane, so each warp's reads are
+// contiguous; warp w adds the partials of blocks w, w + 32, ... in block
+// order, and the 32 warps' sums are added by a tree over warps (16, 8,
+// 4, 2, 1 apart).  The order is the same in every call.
+__global__ void __launch_bounds__(kWarp * kFinWarps)
+agg_finalize_kernel(const float* part_sums, const int* part_counts,
+                    const int* part_total, int nb, int G, int A,
+                    float* sums, int* counts, int* total) {
+  __shared__ float s_f[kFinWarps][kWarp + 1];
+  __shared__ int s_i[kFinWarps][kWarp + 1];
+  const int lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp;
+  const long long GA = (long long)G * A;
+  const long long o = (long long)blockIdx.x * kWarp + lane;
+  float f = 0.f;
+  int c = 0;
+  if (o < GA)
+    f = strided_sum(part_sums + o, w, nb, GA);
+  else if (o < GA + G)
+    c = strided_sum(part_counts + (o - GA), w, nb, G);
+  else if (o == GA + G)
+    c = strided_sum(part_total, w, nb, 1);
+  s_f[w][lane] = f;
+  s_i[w][lane] = c;
+  __syncthreads();
+#pragma unroll
+  for (int s = kFinWarps / 2; s > 0; s /= 2) {
+    if (w < s) {
+      s_f[w][lane] += s_f[w + s][lane];
+      s_i[w][lane] += s_i[w + s][lane];
+    }
+    __syncthreads();
+  }
+  if (w == 0) {
+    if (o < GA) sums[o] = s_f[0][lane];
+    else if (o < GA + G) counts[o - GA] = s_i[0][lane];
+    else if (o == GA + G) *total = s_i[0][lane];
   }
 }
 
-// `nb` must be agg_blocks(n); the partial buffers hold nb x G x A floats,
-// nb x G ints and nb ints.  `mask_out` (nullable) receives the predicate
-// as one byte per row, for the compaction of compact.cuh to rank.
+// Launches the register regime over at most `nb` blocks, no more than are
+// resident on the card at once; `*grid` receives the number launched.
+template <class Src, int GM, int AM>
+int launch_reg(Src src, long long n, int G, int A, int nb, float* part_sums,
+               int* part_counts, int* part_total, uint8_t* mask_out,
+               cudaStream_t stream, int* grid) {
+  auto kernel = mask_out != nullptr ? agg_reg_kernel<Src, GM, AM, true>
+                                    : agg_reg_kernel<Src, GM, AM, false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kAggBlock, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = nb < sms * per_sm ? nb : sms * per_sm;
+  kernel<<<*grid, kAggBlock, 0, stream>>>(src, n, G, A, part_sums,
+                                          part_counts, part_total, mask_out);
+  return (int)cudaGetLastError();
+}
+
 template <class Src, int NV>
-int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
-               int* part_counts, int* part_total, float* sums, int* counts,
-               int* total, uint8_t* mask_out, cudaStream_t stream) {
+int launch_shared(Src src, long long n, int G, int A, int nb,
+                  float* part_sums, int* part_counts, int* part_total,
+                  uint8_t* mask_out, cudaStream_t stream) {
   const size_t per_rep = (size_t)G * (A + 1) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -196,8 +422,8 @@ int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
   if (reps < 1) reps = 1;
   const size_t smem = reps * per_rep;
   if (smem + kAggStaticSmem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  auto kernel = mask_out != nullptr ? agg_kernel<Src, NV, true>
-                                    : agg_kernel<Src, NV, false>;
+  auto kernel = mask_out != nullptr ? agg_shared_kernel<Src, NV, true>
+                                    : agg_shared_kernel<Src, NV, false>;
   if (smem > budget) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -209,11 +435,49 @@ int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
   kernel<<<nb, kAggBlock, smem, stream>>>(
       src, n, chunk, G, A, (int)reps, part_sums, part_counts, part_total,
       mask_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int outs = G * A + G + 1;
-  agg_finalize_kernel<<<(outs + 255) / 256, 256, 0, stream>>>(
-      part_sums, part_counts, part_total, nb, G, A, sums, counts, total);
+  return (int)cudaGetLastError();
+}
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// `nb` must be agg_blocks(n, G, A); the partial buffers hold nb x G x A
+// floats, nb x G ints and nb ints.  `mask_out` (nullable) receives the
+// predicate as one byte per row, for the compaction of compact.cuh to
+// rank.  NV bounds A at compile time; GC is G where the source fixes it
+// (a generated source), 0 where G comes at run time (filter_agg.cu), so
+// that only the regimes a source can take are instantiated.
+template <class Src, int NV, int GC = 0>
+int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
+               int* part_counts, int* part_total, float* sums, int* counts,
+               int* total, uint8_t* mask_out, cudaStream_t stream) {
+  constexpr int kV = NV > 0 ? NV : 1;
+  if (A > NV || (GC > 0 && G != GC)) return (int)cudaErrorInvalidValue;
+  int grid = nb, err = 0;
+  if constexpr (GC > 0) {
+    if constexpr (register_regime(GC, NV))
+      err = launch_reg<Src, GC, kV>(src, n, G, A, nb, part_sums, part_counts,
+                                    part_total, mask_out, stream, &grid);
+    else
+      err = launch_shared<Src, NV>(src, n, G, A, nb, part_sums, part_counts,
+                                   part_total, mask_out, stream);
+  } else if (register_regime(G, A)) {
+    if (G == 1)
+      err = launch_reg<Src, 1, cmin(kV, kRegMaxValsOneGroup)>(
+          src, n, G, A, nb, part_sums, part_counts, part_total, mask_out,
+          stream, &grid);
+    else
+      err = launch_reg<Src, kRegMaxGroups, cmin(kV, kRegMaxVals)>(
+          src, n, G, A, nb, part_sums, part_counts, part_total, mask_out,
+          stream, &grid);
+  } else {
+    err = launch_shared<Src, NV>(src, n, G, A, nb, part_sums, part_counts,
+                                 part_total, mask_out, stream);
+  }
+  if (err != 0) return err;
+  const long long outs = (long long)G * A + G + 1;
+  agg_finalize_kernel<<<(int)((outs + kWarp - 1) / kWarp),
+                        kWarp * kFinWarps, 0, stream>>>(
+      part_sums, part_counts, part_total, grid, G, A, sums, counts, total);
   return (int)cudaGetLastError();
 }
 

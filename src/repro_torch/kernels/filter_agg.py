@@ -11,8 +11,12 @@ plain torch versions.
 
 Both return `(sums float32[G, A], counts int32[G])`; the selective form
 adds the exact number of predicate-true rows.  Rows whose group index is
-outside `[0, G)` count in that total but in no group.  Given a
-compaction `capacity > 0`, the selective form also returns the
+outside `[0, G)` count in that total but in no group.  A value in a row
+the mask (or predicate) drops, or in another group, never reaches a
+group's sum, and a kept NaN or infinity reaches its own group's sum
+only: the reference oracle's `where` (`ref.filter_agg_ref`), not its
+Pallas kernel's one-hot product, which spreads them to every group.
+Given a compaction `capacity > 0`, the selective form also returns the
 predicate-true row ids under the `compact` contract (`compact.py`), and
 with `translate` the key->slot vector: the aggregation stores its
 predicate as one byte per row and the one-launch compaction ranks it.
@@ -104,7 +108,8 @@ def _lib():
     if not _STATIC:
         lib = build.load("filter_agg", build.static_source("filter_agg"))
         vp = ctypes.c_void_p
-        lib.repro_agg_blocks.argtypes = [ctypes.c_longlong]
+        lib.repro_agg_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int]
         lib.repro_filter_agg_max_vals.argtypes = []
         lib.repro_filter_agg.argtypes = [vp, vp, vp, ctypes.c_int] + _AGG_ARGS
         for fn in (lib.repro_agg_blocks, lib.repro_filter_agg_max_vals,
@@ -129,7 +134,7 @@ def _outputs(lib, n: int, n_groups: int, n_vals: int, device):
     is queued: a freed buffer goes back to the allocator at once, and the
     next allocation on the stream may take it while the kernel has yet to
     write there."""
-    nb = lib.repro_agg_blocks(n)
+    nb = lib.repro_agg_blocks(n, n_groups, n_vals)
     f32, i32 = torch.float32, torch.int32
     parts = (torch.empty((nb, n_groups, n_vals), dtype=f32, device=device),
              torch.empty((nb, n_groups), dtype=i32, device=device),

@@ -41,16 +41,14 @@ def _lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_gather_join.argtypes = [vp, vp, ll, i, i, vp, vp]
         lib.repro_gather_join.restype = ctypes.c_int
-        lib.repro_gather_join_smem_limit.argtypes = []
-        lib.repro_gather_join_smem_limit.restype = ll
         _STATIC.append(lib)
     return _STATIC[0]
 
 
 def staged_in_shared_memory(table) -> bool:
-    """Whether the kernel stages `table` in shared memory (else it reads
-    it from device memory)."""
-    return table.numel() * 4 <= _lib().repro_gather_join_smem_limit()
+    """Whether the kernel stages `table` in shared memory: never, it reads
+    every table through the read-only cache."""
+    return False
 
 
 def _gather_join_cuda(fk, table):

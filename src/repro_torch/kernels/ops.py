@@ -59,7 +59,10 @@ calls = {"filter_agg": 0, "compact": 0, "compact_pred": 0,
 
 def filter_agg(mask, gidx, vals, n_groups):
     """Sum of `vals[i, a]` into group `gidx[i]` where `mask[i]`: `(G, A)`
-    float32; rows whose group is outside `[0, G)` add to no group."""
+    float32; rows whose group is outside `[0, G)` add to no group.  A NaN
+    or infinity in a row the mask drops reaches no sum, and one in a kept
+    row only its own group's (the oracle's `where`; the reference's
+    Pallas kernel spreads it to every group)."""
     cols = list(vals.to(torch.float32).t().contiguous())
     sums, _counts = _filter_agg(mask, gidx.to(torch.int32), cols,
                                 int(n_groups))

@@ -74,6 +74,92 @@ def test_filter_agg_kernel(cuda, n, G):
           kf.filter_agg_plain(mask, gidx, vals, G))
 
 
+def _view(a, offset, dev):
+    """`a[offset:]` on the card: a contiguous view at a storage offset,
+    so the kernels' vector loads meet unaligned addresses."""
+    return torch.from_numpy(a).to(dev)[offset:]
+
+
+@pytest.mark.parametrize("G,A", [(8, 8), (9, 8), (1, 16), (6, 7)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [(1 << 20) + 3, (1 << 18) + 3])
+def test_filter_agg_kernel_repeats_bit_for_bit(cuda, G, A, offset, n):
+    """Two calls on the same inputs.  In the register regime (8 x 8, 1 x
+    16 and q1's 6 x 7) the sums are bit-identical, with more blocks than
+    the card holds at once and with fewer (2^18 rows, q12's size); across
+    its boundary (9 x 8) the shared-memory regime's atomics may order the
+    last bits differently, so there both calls are held to the plain
+    version.  n is not a multiple of 4, and with offset 1 every column is
+    a view that the kernel must read without 16-byte loads."""
+    rng = np.random.default_rng(100 * G + A + offset + n)
+    m = n + offset
+    mask = _view(rng.random(m) < 0.6, offset, cuda)
+    gidx = _view(rng.integers(-1, G + 1, m).astype(np.int32), offset, cuda)
+    vals = [_view(rng.normal(size=m).astype(np.float32), offset, cuda)
+            for _ in range(A)]
+    want = kf.filter_agg_plain(mask, gidx, vals, G)
+    first = kf.filter_agg(mask, gidx, vals, G)
+    second = kf.filter_agg(mask, gidx, vals, G)
+    _same(first, want)
+    _same(second, want)
+    assert torch.equal(first[1], second[1])
+    if (G <= 8 and A <= 8) or (G == 1 and A <= 16):     # register regime
+        assert torch.equal(first[0], second[0])
+
+
+# a NaN in a row the mask drops (row 4), an infinity in a kept row of
+# group 1 (row 2): the oracle's sums, which keep each out of every other
+# group's sum
+NF_MASK = np.array([1, 0, 1, 1, 0, 1, 1, 1], bool)
+NF_GIDX = np.array([0, 1, 1, 0, 0, 2, 2, 1], np.int32)
+NF_SUMS = np.array([[6, 8], [np.inf, 20], [22, 24]], np.float32)
+
+
+def _nonfinite(pad):
+    """The eight rows after `pad` rows that the mask drops."""
+    vals = np.arange(16, dtype=np.float32).reshape(8, 2)
+    vals[4, 1] = np.nan
+    vals[2, 0] = np.inf
+    mask = np.concatenate([np.zeros(pad, bool), NF_MASK])
+    gidx = np.concatenate([np.zeros(pad, np.int32), NF_GIDX])
+    vals = np.concatenate([np.full((pad, 2), np.nan, np.float32), vals])
+    return mask, gidx, vals
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("G", [3, 9])
+@pytest.mark.parametrize("pad", [0, 4093])
+def test_filter_agg_kernel_nonfinite_follows_the_oracle(cuda, G, pad):
+    """Both kernels (the precomputed form and the generated selective
+    form, whose predicate drops the NaN rows) give the plain version's
+    sums bit for bit, in both regimes; the dropped rows before the eight
+    are all NaN."""
+    mask, gidx, vals = _nonfinite(pad)
+    want = np.zeros((G, 2), np.float32)
+    want[:3] = NF_SUMS
+    d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for k, v in [("m", mask), ("g", gidx), ("v0", vals[:, 0]),
+                      ("v1", vals[:, 1])]}
+    cols = [d["v0"], d["v1"]]
+    got = kf.filter_agg(d["m"], d["g"], cols, G)
+    plain = kf.filter_agg_plain(d["m"], d["g"], cols, G)
+    assert torch.equal(_bits(got[0]), _bits(plain[0]))
+    assert torch.equal(got[1], plain[1])
+    assert torch.equal(_bits(got[0]).cpu(), _bits(torch.from_numpy(want)))
+    scols = {"m": d["m"].to(torch.int32), "g": d["g"], "v0": d["v0"],
+             "v1": d["v1"]}
+    pred = fu.TileFn(Cmp("==", Col("m"), Const(1)), [])
+    vfns = [fu.TileFn(Col("v0"), []), fu.TileFn(Col("v1"), [])]
+    gfn = fu.GroupIndex([("g", G, 1)], G)
+    got = kf.selective_filter_agg(scols, [], pred, vfns, gfn, G)
+    plain = kf.selective_filter_agg_plain(scols, [], pred, vfns, gfn, G)
+    assert torch.equal(_bits(got[0]), _bits(plain[0]))
+    assert torch.equal(got[1], plain[1]) and int(got[2]) == 6
+
+
 def _pred():
     return And(And(Cmp(">=", Col("f0"), Const(0.05)),
                    Cmp("<=", Col("f0"), Const(0.07))),
@@ -132,18 +218,38 @@ def test_selective_capacity_kernel(cuda, n, n_groups, translate):
                                  (58_113, 1), (200_000, 2)])
 @pytest.mark.parametrize("n", [1, 37, 1 << 20])
 def test_gather_join_kernel(cuda, n, k, c):
-    """Tables staged in shared memory (up to 58,112 x 1 floats = 227 KB)
-    and read from device memory; keys out of range give zeros."""
+    """Tables up to and past one block's shared memory (58,112 x 1 floats
+    = 227 KB), which the kernel no longer stages there: it reads every
+    table through the read-only cache (the faster where measured); keys
+    out of range give zeros."""
     rng = np.random.default_rng(n + k + c)
     fk = torch.from_numpy(rng.integers(-2, k + 2, n).astype(np.int32)
                           ).to(cuda)
     table = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)
                              ).to(cuda)
-    assert kg.staged_in_shared_memory(table) == (k * c * 4 <= 227 * 1024)
+    assert not kg.staged_in_shared_memory(table)
     before = kg.launches["gather_join"]
     got = lib.gather_join(fk, table)
     assert kg.launches["gather_join"] == before + 1
     assert torch.equal(got, kg.gather_join_plain(fk, table))
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 5])
+def test_gather_join_kernel_unaligned_keys(cuda, c):
+    """fk a view one key past a 16-byte boundary, n not a multiple of 4,
+    NaN and infinity in the table: every output a bit copy of the plain
+    version's."""
+    n, k = 4 * 5000 + 3, 1000
+    rng = np.random.default_rng(c)
+    fk = _view(rng.integers(-2, k + 2, n + 1).astype(np.int32), 1, cuda)
+    assert fk.data_ptr() % 16 == 4
+    table = rng.normal(size=(k, c)).astype(np.float32)
+    table[1, 0], table[2, c - 1] = np.nan, np.inf
+    table = torch.from_numpy(table).to(cuda)
+    got = lib.gather_join(fk, table)
+    want = kg.gather_join_plain(fk, table)
+    assert got.shape == want.shape == (n, c)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("k", [1, 10, 100, 1024])

@@ -9,6 +9,7 @@ exact; float sums rtol 1e-5, atol 1e-4 (`test_torch_kernels.RTOL/ATOL`:
 the two packages add in different orders).
 """
 import ctypes
+import importlib
 import shutil
 import subprocess
 
@@ -29,6 +30,9 @@ from repro_torch.kernels.build import CSRC
 from repro_torch.kernels.topk import MAX_K
 from test_torch_kernels import (ATOL, RTOL, T, _columns, _operands, _pnames,
                                 _preds, _values)
+
+# by full name: the package exports a function named filter_agg
+kfa = importlib.import_module("repro_torch.kernels.filter_agg")
 
 
 def _eq(got, want):
@@ -353,6 +357,164 @@ def test_filter_agg_matrix_matches_pallas(n, G, A):
                                          jnp.asarray(gidx),
                                          jnp.asarray(vals), G)),
         rtol=RTOL, atol=ATOL)
+
+
+# The non-finite case: a NaN in a row the mask drops (row 4) and an
+# infinity in a kept row of group 1 (row 2).  The oracle's `where` keeps
+# each out of every other group's sum; the reference's Pallas kernel
+# multiplies by its one-hot matrix (0 * NaN, 0 * inf) and spreads them.
+NF_MASK = np.array([1, 0, 1, 1, 0, 1, 1, 1], bool)
+NF_GIDX = np.array([0, 1, 1, 0, 0, 2, 2, 1], np.int32)
+NF_SUMS = np.array([[6, 8], [np.inf, 20], [22, 24]], np.float32)
+NF_COUNTS = np.array([2, 2, 2], np.int32)
+
+
+def nonfinite_vals():
+    vals = np.arange(16, dtype=np.float32).reshape(8, 2)
+    vals[4, 1] = np.nan
+    vals[2, 0] = np.inf
+    return vals
+
+
+def _same_bits(got, want):
+    np.testing.assert_array_equal(
+        np.asarray(got, np.float32).view(np.int32),
+        np.asarray(want, np.float32).view(np.int32))
+
+
+def test_filter_agg_nonfinite_follows_the_oracle():
+    vals = nonfinite_vals()
+    jm, jg, jv = (jnp.asarray(a) for a in (NF_MASK, NF_GIDX, vals))
+    _same_bits(RK.ref.filter_agg_ref(jm, jg, jv, 3), NF_SUMS)
+    cols = [T(np.ascontiguousarray(c)) for c in vals.T]
+    sums, counts = kfa.filter_agg_plain(T(NF_MASK), T(NF_GIDX), cols, 3)
+    _same_bits(sums, NF_SUMS)
+    _eq(counts, NF_COUNTS)
+    sums, counts = PK.ops.filter_agg_query(T(NF_MASK), T(NF_GIDX), cols, 3)
+    _same_bits(sums, NF_SUMS)
+    _eq(counts, NF_COUNTS)
+    _same_bits(PK.filter_agg(T(NF_MASK), T(NF_GIDX), T(vals), 3), NF_SUMS)
+    _same_bits(PK.ref.filter_agg_ref(T(NF_MASK), T(NF_GIDX), T(vals), 3),
+               NF_SUMS)
+    # the reference's Pallas kernel: NaN everywhere but group 1's infinity
+    pallas = np.asarray(RK.filter_agg(jm, jg, jv, 3, tile=8, interpret=True))
+    assert np.isnan(pallas[[0, 2]]).all() and np.isnan(pallas[1, 1])
+    assert pallas[1, 0] == np.inf
+
+
+def test_selective_filter_agg_nonfinite_follows_the_oracle():
+    """The same rows through the selective form, whose predicate drops
+    the NaN row."""
+    vals = nonfinite_vals()
+    np_cols = {"g": NF_GIDX, "m": NF_MASK.astype(np.int32),
+               "v0": np.ascontiguousarray(vals[:, 0]),
+               "v1": np.ascontiguousarray(vals[:, 1])}
+    pred = lambda E: E.Cmp("==", E.Col("m"), E.Const(1))   # noqa: E731
+    tcols = {k: T(v) for k, v in np_cols.items()}
+    vfns = [fu.TileFn(PE.Col(c), []) for c in ("v0", "v1")]
+    gfn = fu.GroupIndex([("g", 3, 1)], 3)
+    sums, counts, total = kfa.selective_filter_agg_plain(
+        tcols, [], fu.TileFn(pred(PE), []), vfns, gfn, 3)
+    _same_bits(sums, NF_SUMS)
+    _eq(counts, NF_COUNTS)
+    assert int(total) == 6
+    got = PK.selective_filter_agg(tcols, [], fu.TileFn(pred(PE), []), vfns,
+                                  gfn, 2, 3)
+    _same_bits(got[0], NF_SUMS)
+    rvals = [ref_fused.make_tile_fn(RE.Col(c), []) for c in ("v0", "v1")]
+    want = RK.ref.selective_filter_agg_ref(
+        {k: jnp.asarray(v) for k, v in np_cols.items()}, [],
+        ref_fused.make_tile_fn(pred(RE), []),
+        lambda c, s: [f(c, s) for f in rvals], lambda c, _s: c["g"], 2, 3)
+    _same_bits(want[0], NF_SUMS)
+    assert int(want[1]) == int(got[1]) == 6
+
+
+_AGG_SHIM = r"""
+#include "agg_regs.cuh"
+extern "C" {
+int regime(int G, int A) { return repro::register_regime(G, A) ? 1 : 0; }
+// rows through one thread's accumulators of the static library's
+// G <= 8, A <= 8 instance, in row order
+void reg_agg(const unsigned char* m, const int* g, const float* v,
+             long long n, int G, int A, float* sums, int* counts,
+             int* kept) {
+  repro::RegAcc<8, 8> acc;
+  acc.zero();
+  for (long long i = 0; i < n; ++i) {
+    float row[8] = {0.f};
+    for (int k = 0; k < A; ++k) row[k] = v[i * A + k];
+    acc.add(m[i] != 0, g[i], G, row);
+  }
+  for (int j = 0; j < G; ++j) {
+    counts[j] = acc.cnt[j];
+    for (int k = 0; k < A; ++k) sums[j * A + k] = acc.sum[j][k];
+  }
+  *kept = acc.kept;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def agg_shim(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler to build agg_regs.cuh")
+    d = tmp_path_factory.mktemp("agg")
+    (d / "shim.cpp").write_text(_AGG_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
+                    str(CSRC), "-o", str(d / "shim.so"), str(d / "shim.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "shim.so"))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.regime.argtypes = [i, i]
+    lib.reg_agg.argtypes = [vp, vp, vp, ll, i, i, vp, vp, vp]
+    return lib
+
+
+def _reg_agg(lib, mask, gidx, vals, G):
+    n, A = vals.shape
+    m, g = np.ascontiguousarray(mask, np.uint8), np.ascontiguousarray(gidx)
+    v = np.ascontiguousarray(vals)
+    sums, counts = np.zeros((G, A), np.float32), np.zeros(G, np.int32)
+    kept = np.zeros(1, np.int32)
+    lib.reg_agg(m.ctypes.data, g.ctypes.data, v.ctypes.data, n, G, A,
+                sums.ctypes.data, counts.ctypes.data, kept.ctypes.data)
+    return sums, counts, int(kept[0])
+
+
+def test_register_step_keeps_nonfinite_values_in_their_group(agg_shim):
+    """The register regime's per-row step (compiled from the kernel's own
+    header) gives the oracle's sums bit for bit on the non-finite case,
+    and agrees with the plain version on random rows with groups out of
+    range."""
+    sums, counts, kept = _reg_agg(agg_shim, NF_MASK, NF_GIDX,
+                                  nonfinite_vals(), 3)
+    _same_bits(sums, NF_SUMS)
+    _eq(T(counts), NF_COUNTS)
+    assert kept == 6
+    rng = np.random.default_rng(7)
+    n, G, A = 3001, 8, 8
+    mask = rng.random(n) < 0.6
+    gidx = rng.integers(-1, G + 1, n).astype(np.int32)
+    vals = rng.normal(size=(n, A)).astype(np.float32)
+    sums, counts, kept = _reg_agg(agg_shim, mask, gidx, vals, G)
+    want, wcounts = kfa.filter_agg_plain(T(mask), T(gidx),
+                                         [T(np.ascontiguousarray(c))
+                                          for c in vals.T], G)
+    np.testing.assert_allclose(sums, want.numpy(), rtol=RTOL, atol=ATOL)
+    _eq(T(counts), wcounts.numpy())
+    assert kept == int(mask.sum())
+
+
+@pytest.mark.parametrize("G,A,regs", [
+    (6, 7, True), (7, 2, True), (1, 1, True),       # q1, q12, q6
+    (8, 8, True), (9, 8, False), (8, 9, False), (1, 16, True),
+    (1, 17, False), (2, 16, False), (4096, 2, False), (1, 0, True)])
+def test_register_regime_boundary(agg_shim, G, A, regs):
+    """Which (G, A) the kernels aggregate in registers (bit-identical
+    sums): every shape of the engine's main path does."""
+    assert agg_shim.regime(G, A) == int(regs)
 
 
 @pytest.mark.parametrize("n,cap", [(37, 16), (5000, 256)])
