@@ -16,13 +16,21 @@ result line):
      overflow past the capacity, translate), and compaction under many
      tiles (2^22 + 37 rows at densities 0, 0.5 and 1, capacity below and
      above the count, with and without translate, each call 20 times, for
-     a race in the look-back scan); filter_agg called twice at each
-     recorded shape, whose sums must be bit-identical (register regime);
-     a NaN in a row the mask drops and an infinity in a kept row through
-     filter_agg and the generated selective kernel, at G = 3 and 9, bit
-     for bit against the plain version and the oracle; time kernel,
-     plain version and, where one exists, a single PyTorch call
-     computing the same function;
+     a race in the look-back scan), for the mask and for a predicate
+     evaluated inside the scan; filter_agg called twice at each recorded
+     shape, whose sums must be bit-identical (register regime); the
+     selective kernel at q6's shape twice, bit-identical, and 20 calls
+     back to back at 1, 37 and 908,340 rows (the fold's ticket reset),
+     each against the plain version; a NaN in a row the mask drops and
+     an infinity in a kept row through filter_agg and the generated
+     selective kernel, at G = 3 and 9, bit for bit against the plain
+     version and the oracle; the shapes one launch cannot take (17 sums
+     beside l_returnflag through the engine at opt-pallas, against the
+     CPU answer; a dense G = 4096, A = 14 call, against the plain
+     version); time kernel, plain version and, where one exists, a
+     single PyTorch call computing the same function, and require one
+     kernel a call (compact_pred with its memset, the selective form at
+     capacity 0);
   4b. the kernel library's surface (`repro_torch.kernels`), whose
      gather_join, masked_topk and capacity form of selective_filter_agg
      the engine never calls: reset their launch counters, drive each entry
@@ -48,8 +56,9 @@ result line):
 
 Every timed kernel shape is also profiled over 10 calls
 (`torch.profiler`): `device_ms` (device time of its kernels and memsets
-per call) and `kernels_per_call` stand beside the event-timed `ms`, so
-the host's share of a call shows.
+per call) and `kernels_per_call` stand beside the event-timed `ms`, and
+for the four engine kernels `host_ms` (host clock around 100 calls with
+no synchronisation inside, per call: the wrapper's own cost).
 
 Tolerances: integer outputs (row ids, counts, slots), gathers and top-k
 values must match exactly (top-k values bit for bit).
@@ -105,6 +114,8 @@ LIBRARY_KERNELS = ["gather_join", "masked_topk",
 SUBNORMAL = 1.1754944e-39        # a float32 subnormal: 2**-126 / 10
 PROFILED = ("device_ms", "kernels_per_call", "memsets_per_call",
             "device_kernels")
+# engine kernels that must be one launch a call: memsets beside it
+ONE_KERNEL = {"compact_pred": 1, "selective_filter_agg": 0}
 
 
 def log(*a):
@@ -241,6 +252,22 @@ def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 100) -> float:
+    """The host's time per call of `fn`: `time.perf_counter` around
+    `calls` back-to-back calls with no synchronisation inside, after a
+    warm-up (the launches queue on the device meanwhile)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
 def profile_call(fn, calls: int = 10) -> dict:
     """Device time and device operations per call of `fn` over `calls`
     calls under torch.profiler, after a warm-up: `device_ms` sums the
@@ -314,8 +341,12 @@ def kernel_checks(records, dev, timed: bool):
             e.update({k: (time_ms(f) if (f is not None and timed) else None)
                       for k, f in timers.items()})
             if timed:
-                e.update(profile_call(timers["ms"]))
-                log(f"{name} at {n} rows: {e['ms']} ms, device "
+                e["host_ms"] = host_ms(timers["ms"])
+                e.update(one_kernel_a_call(name, timers["ms"],
+                                           ONE_KERNEL[name])
+                         if name in ONE_KERNEL else profile_call(timers["ms"]))
+                log(f"{name} at {n} rows: {e['ms']} ms, host "
+                    f"{e['host_ms']} ms, device "
                     f"{json.dumps(e['device_kernels'])}")
 
     for q, entry, a, k in records:
@@ -379,8 +410,14 @@ def kernel_checks(records, dev, timed: bool):
             want = kf.selective_filter_agg_plain(cols, scalars, pred_fn,
                                                  value_fns, gidx_fn, G)
             err = max_err(got, want, f"selective_filter_agg {q}")
+            again = kf.selective_filter_agg(cols, scalars, pred_fn,
+                                            value_fns, gidx_fn, G)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"selective_filter_agg {q}: two calls differ")
             n = next(iter(cols.values())).shape[0]
             A = len(value_fns)
+            log(f"selective_filter_agg {q} (G={G}, A={A}, {n} rows): two "
+                "calls bit-identical")
             note("selective_filter_agg", err,
                  nbytes(*cols.values()) + 4 * G * (A + 1) + 4, n, {
                      "ms": lambda: kf.selective_filter_agg(
@@ -509,31 +546,147 @@ def nonfinite_checks(dev) -> None:
         "plain version and the oracle bit for bit (G = 3 and 9)")
 
 
-def many_tile_checks(dev) -> float:
+def tile_predicate():
+    """(predicate, its parameter names) of the many-tile compact_pred
+    check: `x < t` over one float32 column, so t sets the density."""
+    from repro_torch.core.expr import Cmp, Col, Param
+    from repro_torch.core.operators.fused import TileFn
+
+    return TileFn(Cmp("<", Col("x"), Param("t", "float32")), ["t"])
+
+
+def many_tile_checks(dev) -> dict:
     """The look-back scan under many tiles: 2^22 + 37 rows (1,025 tiles of
     4,096; 2^16 + 37 in a CPU rehearsal) at densities 0, 0.5 and 1,
     capacity below and above the count, with and without translate, each
-    call repeated 20 times against one plain answer.  Returns the max
-    error (0: every repeat exact)."""
+    call repeated 20 times against one plain answer, for the mask
+    (`compact`) and for a predicate evaluated inside the scan
+    (`compact_pred`, `x < t` over uniform x in [0, 1)).  Returns the max
+    error per kernel (0: every repeat exact)."""
     import torch
 
     kc = kmod("compact")
     g = torch.Generator().manual_seed(1)
     n = (1 << 22) + 37 if dev.type == "cuda" else (1 << 16) + 37
-    err = 0.0
+    reps = 20 if dev.type == "cuda" else 1
+    pred = tile_predicate()
+    x = {"x": torch.rand(n, generator=g).to(dev)}
+    errs = {"compact": 0.0, "compact_pred": 0.0}
     for p in (0.0, 0.5, 1.0):
         mask = (torch.rand(n, generator=g) < p).to(dev)
-        count = int(mask.sum())
-        for cap in (max(count // 3, 1), count + 5):
-            for tr in (False, True):
-                want = kc.compact_plain(mask, cap, tr)
-                for r in range(20 if mask.is_cuda else 1):
-                    err = max(err, max_err(
-                        kc.compact(mask, cap, translate=tr), want,
-                        f"compact many tiles p={p} cap={cap} tr={tr} #{r}"))
-    log(f"compaction under {-(-n // kc.TILE_ROWS)} tiles: every repeat "
-        "equal to the plain version")
+        cases = [("compact", mask, lambda cap, tr: kc.compact(
+                      mask, cap, translate=tr),
+                  lambda cap, tr: kc.compact_plain(mask, cap, tr)),
+                 ("compact_pred", x["x"] < p, lambda cap, tr: kc.compact_pred(
+                      x, [p], pred, cap, translate=tr),
+                  lambda cap, tr: kc.compact_pred_plain(x, [p], pred, cap,
+                                                        tr))]
+        for name, m, kernel, plain in cases:
+            count = int(m.sum())
+            for cap in (max(count // 3, 1), count + 5):
+                for tr in (False, True):
+                    want = plain(cap, tr)
+                    for r in range(reps):
+                        errs[name] = max(errs[name], max_err(
+                            kernel(cap, tr), want, f"{name} many tiles "
+                            f"p={p} cap={cap} tr={tr} #{r}"))
+    log(f"compaction and predicate compaction under "
+        f"{-(-n // kc.TILE_ROWS)} tiles: every repeat equal to the plain "
+        "version")
+    return errs
+
+
+def selective_repeat_checks(records, dev) -> float:
+    """The selective kernel's fold, 20 calls back to back at 1, 37 and all
+    of q6's rows (908,340 at SF 1), each against the plain version and
+    bit-identical to the first: the last block of each launch sets the
+    stream's ticket back to 0 for the next.  Returns the max error."""
+    import torch
+
+    kf = kmod("filter_agg")
+    cols, sc, pred, vfns, gfn, G = next(
+        to(dev, a) for q, e, a, _k in records
+        if (q, e) == ("q6", "selective_agg_query"))
+    n6 = next(iter(cols.values())).shape[0]
+    err = 0.0
+    for n in (1, 37, n6):
+        sub = {k: v[:n].contiguous() for k, v in cols.items()}
+        want = kf.selective_filter_agg_plain(sub, sc, pred, vfns, gfn, G)
+        calls = [kf.selective_filter_agg(sub, sc, pred, vfns, gfn, G)
+                 for _ in range(20)]
+        for k, got in enumerate(calls):
+            err = max(err, max_err(got, want, f"selective q6 {n} rows #{k}"))
+            check(all(torch.equal(a, b) for a, b in zip(got, calls[0])),
+                  f"selective q6 {n} rows: call {k} differs from call 0")
+    log(f"selective kernel at 1, 37 and {n6} rows: 20 calls back to back, "
+        "each equal to the plain version, all bit-identical")
     return err
+
+
+def wide_agg_plan():
+    """17 sums beside one group key: more value columns than one
+    aggregation launch takes (16)."""
+    from repro_torch.core import ir
+    from repro_torch.core.expr import col
+
+    return ir.Agg(ir.Scan("lineitem"), ["l_returnflag"],
+                  [ir.AggSpec(f"s{k}", "sum", col("l_quantity"))
+                   for k in range(17)])
+
+
+def repair_checks(db, dev) -> float:
+    """The shapes one aggregation launch cannot take, which the wrappers
+    split by value columns: the 17-sum plan through the engine at
+    opt-pallas against the port's CPU answer (G = 3, A = 17: two
+    launches), and a dense G = 4096, A = 14 call (4096 x 15 x 4 B
+    exceed one block's shared memory: two launches) against the plain
+    version.  Returns the max error of the direct call."""
+    import torch
+
+    from repro_torch.core import CompiledQuery, preset
+
+    kf = kmod("filter_agg")
+    want = CompiledQuery(wide_agg_plan(), db, preset("opt-pallas"),
+                         device="cpu").run()
+    before = kf.launches["filter_agg"]
+    got = CompiledQuery(wide_agg_plan(), db, preset("opt-pallas"),
+                        device=None if dev.type == "cuda" else "cpu").run()
+    assert_same(got, want, False, "17 sums by l_returnflag")
+    if dev.type == "cuda":
+        check(kf.launches["filter_agg"] == before + 2,
+              "17 sums: not two launches")
+    g = torch.Generator().manual_seed(4)
+    n, G, A = 1 << 20, 4096, 14
+    mask = (torch.rand(n, generator=g) < 0.7).to(dev)
+    gidx = torch.randint(-1, G + 1, (n,), generator=g,
+                         dtype=torch.int32).to(dev)
+    vals = [torch.randn(n, generator=g).to(dev) for _ in range(A)]
+    before = kf.launches["filter_agg"]
+    err = max_err(kf.filter_agg(mask, gidx, vals, G),
+                  kf.filter_agg_plain(mask, gidx, vals, G),
+                  "filter_agg G=4096 A=14")
+    if dev.type == "cuda":
+        check(kf.launches["filter_agg"] == before + 2,
+              "G=4096 A=14: not two launches")
+    log("17 sums by l_returnflag (engine, opt-pallas) and G=4096 x A=14: "
+        "equal to the CPU answer and the plain version, two launches each")
+    return err
+
+
+def one_kernel_a_call(name: str, fn, memsets: int) -> dict:
+    """`profile_call(fn)` of a window in which every call was one kernel
+    and `memsets` memsets, or fail.  A window that lost events shows
+    fewer, never more, so a second and third window are taken before a
+    shortfall fails."""
+    for _ in range(3):
+        p = profile_call(fn)
+        check(p["kernels_per_call"] <= 1 and p["memsets_per_call"] <= memsets,
+              f"{name}: {p['kernels_per_call']} kernels, "
+              f"{p['memsets_per_call']} memsets a call")
+        if p["kernels_per_call"] == 1 and p["memsets_per_call"] == memsets:
+            log(f"{name}: one kernel and {memsets} memsets a call")
+            return p
+    check(False, f"{name}: {p['kernels_per_call']} kernels a call")
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +1047,8 @@ def main() -> int:
                     kf.selective_source(s_cols, [], s_pred, s_vals, None, 1)]
         sources += [kf.selective_source(cols, [], pred, vfns, gfn, G)
                     for _l, G, cols, pred, vfns, gfn in nonfinite_cases(dev)]
+        sources.append(kc.pred_source({"x": torch.zeros(1, device=dev)},
+                                      [0.5], tile_predicate()))
         for p in build.build_all(sources):
             ptx = [ln for ln in p.with_suffix(".log").read_text().splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -906,8 +1061,13 @@ def main() -> int:
     checks = kernel_checks(records, dev, timed=not args.rehearse)
     for name, err in edge_checks(records, dev).items():
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
-    checks["compact"]["max_abs_err"] = max(checks["compact"]["max_abs_err"],
-                                           many_tile_checks(dev))
+    for name, err in many_tile_checks(dev).items():
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
+    checks["selective_filter_agg"]["max_abs_err"] = max(
+        checks["selective_filter_agg"]["max_abs_err"],
+        selective_repeat_checks(records, dev))
+    checks["filter_agg"]["max_abs_err"] = max(
+        checks["filter_agg"]["max_abs_err"], repair_checks(db, dev))
     nonfinite_checks(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -979,6 +1139,7 @@ def main() -> int:
             "device_ms": c.get("device_ms"),
             "kernels_per_call": c.get("kernels_per_call"),
             "memsets_per_call": c.get("memsets_per_call"),
+            "host_ms": c.get("host_ms"),
             "plain_ms": c.get("plain_ms"),
             "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": c.get("library_ms"),

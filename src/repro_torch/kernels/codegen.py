@@ -27,6 +27,7 @@ never rebuilds the kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -81,19 +82,32 @@ def _cast(code: str, have: str, want: str) -> str:
 
 
 class Emitter:
-    """Emits C++ expressions over `c<k>[i]` column loads and `p<k>`
-    parameter members.  `col_types` maps each column name (in argument
-    order) to "int" | "float" | "bool"; `param_types` does the same for
-    the parameters."""
+    """Emits C++ expressions over `x<k>` (column k at row i, loaded by
+    `loads`) and `p<k>` parameter members.  `col_types` maps each column
+    name (in argument order) to "int" | "float" | "bool"; `param_types`
+    does the same for the parameters."""
 
     def __init__(self, col_types: dict[str, str], param_types: dict[str, str]):
         self.cols = list(col_types)
         self.col_types = dict(col_types)
         self.params = list(param_types)
         self.param_types = dict(param_types)
+        self.used: set[int] = set()
 
     def col(self, name: str) -> tuple[str, str]:
-        return f"c{self.cols.index(name)}[i]", self.col_types[name]
+        k = self.cols.index(name)
+        self.used.add(k)
+        return f"x{k}", self.col_types[name]
+
+    def loads(self) -> list[str]:
+        """Statements loading every column emitted since the last call,
+        each once, ahead of the expression: it then reads registers only,
+        so no `&&`, `||` or `?:` puts a load behind a branch, and a kernel
+        that evaluates several rows has all their loads in flight."""
+        out = [f"    const {self.col_types[c]} x{k} = c{k}[i];"
+               for k, c in enumerate(self.cols) if k in self.used]
+        self.used.clear()
+        return out
 
     def emit(self, e) -> tuple[str, str]:
         """(C++ expression, its type) for one Expr node."""
@@ -189,6 +203,46 @@ def param_types(param_names: list[str], scalars: list) -> dict[str, str]:
     return {p: _scalar_type(v) for p, v in zip(param_names, scalars)}
 
 
+_KEYS: dict[int, tuple] = {}
+_KEYS_MAX = 4096
+
+
+def _structure(e):
+    if dataclasses.is_dataclass(e):
+        return (type(e).__name__,
+                *(_structure(getattr(e, f.name))
+                  for f in dataclasses.fields(e)))
+    if isinstance(e, (tuple, list)):
+        return tuple(_structure(x) for x in e)
+    return type(e).__name__, repr(e)
+
+
+def expr_key(e) -> tuple:
+    """A key of expression `e` that differs wherever the source emitted
+    for it could: the tree's own equality does not (`Const(1) ==
+    Const(1.0) == Const(True)`, `Const(0.0) == Const(-0.0)`, and a NaN
+    constant equals no tree), so each leaf is spelled by its type and
+    repr.  Memoized by identity — a staged plan hands the same tree on
+    every run — and the entry holds the tree, so its id cannot be reused
+    while it is cached."""
+    hit = _KEYS.get(id(e))
+    if hit is not None and hit[0] is e:
+        return hit[1]
+    if len(_KEYS) >= _KEYS_MAX:
+        _KEYS.clear()
+    key = _structure(e)
+    _KEYS[id(e)] = (e, key)
+    return key
+
+
+def operand_key(cols: dict, param_names: list[str], scalars: list) -> tuple:
+    """What of a call's operands the generated source depends on: each
+    column's name and dtype in argument order, each parameter's name and
+    kind (never its value: rebinding a parameter keeps the library)."""
+    return (tuple((name, str(t.dtype)) for name, t in cols.items()),
+            tuple(param_names), tuple(_scalar_type(v) for v in scalars))
+
+
 def split_scalars(param_names: list[str], scalars: list
                   ) -> tuple[list[float], list[int]]:
     """The launch's float and integer parameter arrays (see `fill`)."""
@@ -210,14 +264,18 @@ def functor_source(em: Emitter, pred, values: list = (), radix=(),
                    n_groups: int = 1) -> str:
     """`struct Src`: the row functor the kernel bodies are instantiated
     around — `pred(i)`, `group(i)` (the clipped mixed-radix index over
-    `radix`, or 0) and `values(i, v)` (each value expression as float)."""
+    `radix`, or 0) and `values(i, v)` (each value expression as float).
+    Each method loads the columns it reads first (`Emitter.loads`)."""
+    em.used.clear()
     p, _ = em.emit(pred)
+    pred_body = [*em.loads(), f"    return {p};"]
     vals = [f"    v[{k}] = (float){em.emit(e)[0]};"
             for k, e in enumerate(values)]
+    vals = [*em.loads(), *vals]
     if radix:
         terms = " + ".join(f"(int){em.col(g)[0]} * {_int_literal(st)}"
                            for g, _d, st in radix)
-        group = [f"    const int g = {terms};",
+        group = [*em.loads(), f"    const int g = {terms};",
                  f"    return g < 0 ? 0 : (g > {n_groups - 1} ? "
                  f"{n_groups - 1} : g);"]
     else:
@@ -225,7 +283,7 @@ def functor_source(em: Emitter, pred, values: list = (), radix=(),
     return "\n".join([
         "struct Src {", *em.members(),
         "  __device__ __forceinline__ bool pred(long long i) const {",
-        f"    return {p};", "  }",
+        *pred_body, "  }",
         "  __device__ __forceinline__ int group(long long i) const {",
         *group, "  }",
         "  __device__ __forceinline__ void values(long long i, float* v)"
@@ -233,9 +291,10 @@ def functor_source(em: Emitter, pred, values: list = (), radix=(),
 
 
 def compact_pred_source(pred, em: Emitter) -> str:
-    """A library exporting `repro_compact_pred`: the predicate evaluated
-    in-kernel and stored as bytes, then ranked by the one-pass compaction
-    (`csrc/compact.cuh`), in the workspace layout described there."""
+    """A library exporting `repro_compact_pred`: the one-pass compaction
+    (`csrc/compact.cuh`) instantiated on the predicate's functor, so the
+    predicate is evaluated inside the look-back scan, in the workspace
+    layout described there: one memset and one launch."""
     return "\n".join([
         _HEADER + '#include "compact.cuh"', "",
         "namespace {", functor_source(em, pred), "}  // namespace", "",
@@ -245,9 +304,8 @@ def compact_pred_source(pred, em: Emitter) -> str:
         "                                 int cap, int translate,"
         " cudaStream_t stream) {",
         "  Src s{};", *em.fill("s"),
-        "  return repro::compact_pred_into(s, n, ws, ws_words, cap,"
-        " translate != 0,",
-        "                                  stream);",
+        "  return repro::compact_into(s, n, ws, ws_words, cap, translate != 0,",
+        "                             stream);",
         "}", ""])
 
 
@@ -265,11 +323,9 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
         "namespace {", functor_source(em, pred, values, radix, n_groups),
         "}  // namespace", "",
         f'extern "C" int repro_selective_agg({_ARGS},',
-        "    long long n, int G, int nb, float* part_sums, int* part_counts,",
-        "    int* part_total, float* sums, int* counts, int* total,",
+        "    long long n, int G, int nb, int* ws, int* out, int* ticket,",
         "    uint8_t* mask_out, cudaStream_t stream) {",
         "  Src s{};", *em.fill("s"),
         f"  return repro::launch_agg<Src, {nv}, {n_groups}>(",
-        f"      s, n, G, {nv}, nb, part_sums, part_counts, part_total, sums,",
-        "      counts, total, mask_out, stream);",
+        f"      s, n, G, {nv}, nb, ws, out, ticket, mask_out, stream);",
         "}", ""])

@@ -88,12 +88,12 @@ def workspace_head(n: int) -> int:
     return 2 * (-(-n // TILE_ROWS)) + 2
 
 
-def _workspace(n: int, capacity: int, translate: bool, pred: bool, device):
+def _workspace(n: int, capacity: int, translate: bool, device):
     """(workspace, outputs as views of it): one allocation per call."""
     head = workspace_head(n)
     slot = n if translate else 0
-    ws = torch.empty(head + capacity + slot + ((n + 3) // 4 if pred else 0),
-                     dtype=torch.int32, device=device)
+    ws = torch.empty(head + capacity + slot, dtype=torch.int32,
+                     device=device)
     out = (ws[head:head + capacity], ws[head - 1])
     if translate:
         out += (ws[head + capacity:head + capacity + n],)
@@ -104,7 +104,7 @@ def rank_mask_cuda(mask, capacity: int, translate: bool):
     """The one-launch compaction of a contiguous CUDA bool mask, with no
     check and no count of launches: for the wrappers that own them."""
     n = mask.shape[0]
-    ws, out = _workspace(n, capacity, translate, False, mask.device)
+    ws, out = _workspace(n, capacity, translate, mask.device)
     build.check(_lib().repro_compact(
         build.ptr(mask), n, build.ptr(ws), ws.shape[0], capacity,
         int(translate), build.stream_ptr(mask)), "compact")
@@ -131,18 +131,25 @@ def pred_source(cols: dict, scalars: list, pred_fn) -> tuple[str, str]:
     return "compact_pred", codegen.compact_pred_source(pred_fn.expr, em)
 
 
-_PRED_LIBS: dict[str, ctypes.CDLL] = {}
+def pred_key(cols: dict, scalars: list, pred_fn) -> tuple:
+    """The generated library's key: everything its source depends on,
+    cheaper to make than the source."""
+    return (codegen.expr_key(pred_fn.expr),
+            codegen.operand_key(cols, pred_fn.param_names, scalars))
+
+
+_PRED_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def _pred_lib(cols: dict, scalars: list, pred_fn):
-    name, src = pred_source(cols, scalars, pred_fn)
-    lib = _PRED_LIBS.get(src)
+    key = pred_key(cols, scalars, pred_fn)
+    lib = _PRED_LIBS.get(key)
     if lib is None:
-        lib = build.load(name, src)
+        lib = build.load(*pred_source(cols, scalars, pred_fn))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_compact_pred.argtypes = [vp, vp, vp, ll, vp, ll, i, i, vp]
         lib.repro_compact_pred.restype = ctypes.c_int
-        _PRED_LIBS[src] = lib
+        _PRED_LIBS[key] = lib
     return lib
 
 
@@ -156,7 +163,7 @@ def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
         raise ValueError("compact_pred columns differ in length")
     _check_capacity(capacity)
     plib = _pred_lib(cols, scalars, pred_fn)
-    ws, out = _workspace(n, capacity, translate, True, first.device)
+    ws, out = _workspace(n, capacity, translate, first.device)
     fp, ip = codegen.split_scalars(pred_fn.param_names, scalars)
     build.check(plib.repro_compact_pred(
         (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols.values()]),

@@ -4,17 +4,20 @@
 //
 // Replaces the Pallas kernels `compact` / `compact_translate`
 // (src/repro/kernels/compact.py:98, :136, body `_compact_body` :55) and
-// `compact_pred` (:158).  The Pallas kernel carries the running offset
-// across grid steps in `cnt_ref`, relying on the TPU grid running in
-// order.  A CUDA grid has no order, so this is a single-pass chained scan
-// with decoupled look-back (Merrill and Garland, "Single-pass Parallel
-// Prefix Scan with Decoupled Look-back", NVIDIA 2016), in one launch:
+// `compact_pred` (:158, body :192).  The Pallas kernel carries the running
+// offset across grid steps in `cnt_ref`, relying on the TPU grid running
+// in order.  A CUDA grid has no order, so this is a single-pass chained
+// scan with decoupled look-back (Merrill and Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016), in one
+// launch:
 //
 //   * a block takes its tile of 4096 rows from an atomic ticket, not from
 //     blockIdx.x, so it only ever waits on tiles whose blocks already
 //     run, and the scan cannot deadlock whatever the card schedules;
-//   * it evaluates its rows once, keeps a warp ballot per 256 rows in
-//     registers, and counts the tile;
+//   * it evaluates its rows once, every item's predicate before the first
+//     ballot (a tile wholly below n takes no bounds check, so all its
+//     items' loads are in flight together), keeps a warp ballot per 256
+//     rows in registers, and counts the tile;
 //   * it publishes that aggregate, sums its predecessors' words looking
 //     back 32 tiles at a time (stopping at the first inclusive prefix),
 //     and publishes its own inclusive prefix;
@@ -29,18 +32,20 @@
 // and written whole, so no reader sees a flag without its value.
 //
 // The kernel is a template over its row source: `MaskSource` ranks a
-// byte mask; topk.cu instantiates it with a source that ranks the ties of
-// its selected key.  `compact_pred` stores its predicate as bytes in a
-// first pass (`predicate_bytes_kernel`) and ranks those.
+// byte mask (`compact`); the generated `compact_pred` libraries
+// (codegen.py) instantiate it on their predicate functor, which loads
+// every column it reads before it evaluates, so the predicate is
+// evaluated inside the scan and no mask is ever stored; topk.cu
+// instantiates it with a source that ranks the ties of its selected key.
 //
 // Workspace (int32 words, one allocation): [status 2 per tile][ticket]
-// [total][idx cap][slot_of n, with translate][predicate bytes, n / 4
-// rounded up, compact_pred only].  One cudaMemsetAsync clears the status
-// words, the ticket, the total and idx, so pad slots stay 0.
+// [total][idx cap][slot_of n, with translate].  One cudaMemsetAsync
+// clears the status words, the ticket, the total and idx, so pad slots
+// stay 0: a call is one memset and one launch.
 //
-// Bound on the card: bytes.  The mask (1 B/row) is read once; 4 B are
-// written per kept row (+4 B/row of slot_of with translate).  The
-// predicate form writes and reads its byte mask once more.
+// Bound on the card: bytes.  The mask (1 B/row), or the columns the
+// predicate reads, is read once; 4 B are written per kept row (+4 B/row
+// of slot_of with translate).
 #pragma once
 
 #include <climits>
@@ -117,11 +122,18 @@ compact_kernel(Src src, long long n, int n_tiles,
   const int tile = s_tile;
   const long long base = (long long)tile * kCompactRows;
 
+  // every item's predicate before the first ballot
   bool m[kCompactItems];
+  if (base + kCompactRows <= n) {
 #pragma unroll
-  for (int k = 0; k < kCompactItems; ++k) {
-    const long long i = base + (long long)k * kCompactBlock + threadIdx.x;
-    m[k] = i < n && src.pred(i);
+    for (int k = 0; k < kCompactItems; ++k)
+      m[k] = src.pred(base + (long long)k * kCompactBlock + threadIdx.x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCompactItems; ++k) {
+      const long long i = base + (long long)k * kCompactBlock + threadIdx.x;
+      m[k] = i < n && src.pred(i);
+    }
   }
   unsigned ballot[kCompactItems];
 #pragma unroll
@@ -179,18 +191,6 @@ compact_kernel(Src src, long long n, int n_tiles,
   }
 }
 
-// The predicate as one byte per row, for compact_kernel<MaskSource>.
-template <class Src>
-__global__ void __launch_bounds__(kCompactBlock)
-predicate_bytes_kernel(Src src, long long n, uint8_t* out) {
-  const long long base = (long long)blockIdx.x * kCompactRows;
-#pragma unroll 4
-  for (int k = 0; k < kCompactItems; ++k) {
-    const long long i = base + (long long)k * kCompactBlock + threadIdx.x;
-    if (i < n) out[i] = src.pred(i) ? 1 : 0;
-  }
-}
-
 inline long long compact_tiles(long long n) {
   return (n + kCompactRows - 1) / kCompactRows;
 }
@@ -225,45 +225,25 @@ int launch_compact(Src src, long long n, CompactScratch s, int* idx, int cap,
 }
 
 // Words the workspace needs, or -1 for arguments out of range.
-inline long long compact_words(long long n, int cap, bool translate,
-                               bool bytes) {
+inline long long compact_words(long long n, int cap, bool translate) {
   if (n < 0 || n >= INT_MAX || cap < 0) return -1;
-  return compact_head_words(n) + cap + (translate ? n : 0) +
-         (bytes ? (n + 3) / 4 : 0);
+  return compact_head_words(n) + cap + (translate ? n : 0);
 }
 
-// The compaction of a byte mask in the workspace layout above: one memset
-// and one launch.
-inline int compact_mask_into(const uint8_t* mask, long long n, int* ws,
-                             long long ws_words, int cap, bool translate,
-                             cudaStream_t stream) {
-  const long long need = compact_words(n, cap, translate, false);
+// The compaction of `src`'s rows in the workspace layout above: one
+// memset and one launch.
+template <class Src>
+int compact_into(const Src& src, long long n, int* ws, long long ws_words,
+                 int cap, bool translate, cudaStream_t stream) {
+  const long long need = compact_words(n, cap, translate);
   if (need < 0 || ws_words < need) return (int)cudaErrorInvalidValue;
   const long long head = compact_head_words(n);
   const cudaError_t err =
       cudaMemsetAsync(ws, 0, 4 * (size_t)(head + cap), stream);
   if (err != cudaSuccess) return (int)err;
   int* idx = ws + head;
-  return launch_compact(MaskSource{mask}, n, compact_scratch(ws, n), idx, cap,
+  return launch_compact(src, n, compact_scratch(ws, n), idx, cap,
                         translate ? idx + cap : nullptr, stream);
-}
-
-// The compaction of a generated predicate: stored as bytes at the end of
-// the workspace, then ranked as a mask (one memset, two launches).
-template <class Src>
-int compact_pred_into(const Src& src, long long n, int* ws,
-                      long long ws_words, int cap, bool translate,
-                      cudaStream_t stream) {
-  const long long need = compact_words(n, cap, translate, true);
-  if (need < 0 || ws_words < need) return (int)cudaErrorInvalidValue;
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(
-      ws + compact_head_words(n) + cap + (translate ? n : 0));
-  if (n > 0)
-    predicate_bytes_kernel<Src><<<(int)compact_tiles(n), kCompactBlock, 0,
-                                  stream>>>(src, n, bytes);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return compact_mask_into(bytes, n, ws, ws_words, cap, translate, stream);
 }
 
 }  // namespace repro

@@ -15,11 +15,11 @@ int repro_agg_blocks(long long n, int G, int A) {
 
 int repro_filter_agg_max_vals() { return kMaxVals; }
 
-// `cols` is a host array of `n_vals` device pointers to float32[n].
+// `cols` is a host array of `n_vals` device pointers to float32[n]; `ws`,
+// `out` and `ticket` as filter_agg.cuh describes them.
 int repro_filter_agg(const uint8_t* mask, const int* gidx,
                      const float* const* cols, int n_vals, long long n,
-                     int G, int nb, float* part_sums, int* part_counts,
-                     int* part_total, float* sums, int* counts, int* total,
+                     int G, int nb, int* ws, int* out, int* ticket,
                      cudaStream_t stream) {
   if (n_vals < 0 || n_vals > kMaxVals) return (int)cudaErrorInvalidValue;
   repro::ColumnSource<kMaxVals> src{};
@@ -28,8 +28,7 @@ int repro_filter_agg(const uint8_t* mask, const int* gidx,
   for (int k = 0; k < n_vals; ++k) src.cols[k] = cols[k];
   src.n_vals = n_vals;
   return repro::launch_agg<repro::ColumnSource<kMaxVals>, kMaxVals>(
-      src, n, G, n_vals, nb, part_sums, part_counts, part_total, sums,
-      counts, total, nullptr, stream);
+      src, n, G, n_vals, nb, ws, out, ticket, nullptr, stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,7 @@
 // beyond the bound.  The Pallas kernel keeps one (G, A) accumulator
 // resident in VMEM across a grid that runs in order.  A CUDA grid has no
 // order and no resident accumulator, so every block writes a partial and
-// a second launch adds the partials.
+// the partials are added afterwards.
 //
 // Bound on the card: bytes.  The pass reads every input column once
 // (mask 1 B/row, group index 4 B/row and 4 B/row per value column, or the
@@ -30,7 +30,12 @@
 //     (RegAcc::add), so no atomics at all.  Each warp adds its threads'
 //     accumulators by a shuffle tree, the block its warps in warp order,
 //     and one partial per block goes out.  Rows go to threads by a fixed
-//     grid stride over a grid that depends on n and the card only, so
+//     grid stride over a grid that depends on n and the card only.  The
+//     same launch then folds the partials: each block, once its partial
+//     is out, fences and draws a ticket; the block that draws the last
+//     one adds every block's partials in the fixed order of agg_regs.cuh
+//     (lanes over rows in row order, a tree over lanes), writes the
+//     result and sets the ticket back to 0.  So a call is one launch and
 //     the same inputs give bit-identical sums in every call.
 //   * shared-memory regime (everything larger, G x (A + 1) words within
 //     one block's shared memory): each block reduces a contiguous chunk
@@ -39,12 +44,29 @@
 //     consecutive rows of its stride fall into the same group and flushes
 //     it with shared-memory atomics when the group changes.  The order of
 //     those atomics is not fixed, so float sums may differ in the last
-//     bits from run to run.
+//     bits from run to run.  Its outputs reach G x (A + 1) = 57,000 words
+//     over up to 1,024 partials, more than one block adds at speed, so a
+//     second launch (agg_finalize_kernel, one block per 32 outputs) adds
+//     them, in a fixed order too.
 //
-// Both regimes end in agg_finalize_kernel, which adds the partials over
-// blocks as a tree in a fixed order.  Counts and the predicate total are
+// The ticket is one int32 that the caller keeps for each (device,
+// stream), zeroed once when it is made.  Launches on one stream run one
+// after another, and the last block of each leaves the ticket at 0, so
+// the next launch on that stream finds it at 0 and no two launches ever
+// draw from one ticket at the same time; a launch on another stream has
+// its own ticket.
+//
+// Workspace (int32 words, 16-byte aligned): nb rows of G x A + G + 1
+// words padded to a multiple of 4 (agg_row_words), each [G x A float
+// sums][G counts][predicate total][padding]; row b is block b's partial.
+// The result `out` is one more row of that layout, 16-byte aligned: the
+// wrappers put it right after the partials, in the same allocation, while
+// the partials are small, and on its own otherwise, so that a kept result
+// never holds large partials alive.  Counts and the predicate total are
 // exact int32 throughout.
 #pragma once
+
+#include <atomic>
 
 #include "agg_regs.cuh"
 #include "common.cuh"
@@ -57,10 +79,22 @@ constexpr int kAggBlock = 256;
 // spreads over the whole card)
 constexpr int kAggRowsPerBlock = 4096;
 constexpr int kRegRowsPerBlock = 4 * kAggBlock;
-constexpr int kAggMaxBlocks = 1024;      // partials of the second pass
+constexpr int kAggMaxBlocks = 1024;      // partial rows a call may write
 constexpr int kAggMaxReplicas = 8;
 constexpr size_t kAggDefaultSmem = 48 * 1024;
 constexpr size_t kAggStaticSmem = 1024;      // >= the kernel's static scratch
+static_assert(kAggBlock == kFoldThreads, "the fold runs in one agg block");
+
+// Outputs of a call: G x A sums, G counts, the total.
+__host__ __device__ __forceinline__ int agg_outputs(int G, int A) {
+  return G * A + G + 1;
+}
+
+// Words of one row of the workspace: the outputs, padded to a quad so
+// that every row starts 16-byte aligned.
+__host__ __device__ __forceinline__ int agg_row_words(int G, int A) {
+  return (agg_outputs(G, A) + 3) / 4 * 4;
+}
 
 // The number of partials a call may write: its partial buffers hold
 // that many blocks' sums.  The register regime launches at most as many
@@ -165,15 +199,42 @@ __device__ __forceinline__ void load_quad(const ColumnSource<MAXA>& s,
   }
 }
 
+// The register regime's fold, run by the grid's last block: adds `rows`
+// partial rows of `stride` words (agg_row_words) into `out`, in the order
+// of agg_regs.cuh (fold_lane over 16-byte quads, then fold_tree over
+// lanes); words below GA are float sums, the rest int counts.
+__device__ __forceinline__ void fold_rows(const int* ws, int rows, int* out,
+                                          int stride, int O, int GA) {
+  __shared__ WordQuad s_fold[kFoldThreads];
+  const int quads = (O + 3) / 4, cols = fold_cols(quads);
+  const int W = kFoldThreads / cols;
+  const int t = threadIdx.x, q = t % cols, r = t / cols;
+  const bool live = q < quads;
+  bool is_sum[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) is_sum[c] = 4 * q + c < GA;
+  WordQuad acc = {{0, 0, 0, 0}};
+  if (live) fold_lane(ws + 4 * q, stride, rows, r, W, is_sum, acc.w);
+  s_fold[t] = acc;
+  __syncthreads();
+  // lane r of quad column q is s_fold[r * cols + q]
+  fold_tree(s_fold + q, cols, W, live ? r : W, W, is_sum);
+  if (live && r == 0) *reinterpret_cast<WordQuad*>(out + 4 * q) = s_fold[t];
+}
+
 // kMask: also store the predicate in mask_out (a separate instantiation,
-// so the engine's form pays nothing for it).
+// so the engine's form pays nothing for it).  Writes partial row
+// blockIdx.x; the last block to finish folds rows 0 .. gridDim.x - 1 into
+// `out` and resets the ticket.
 template <class Src, int GM, int AM, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
-agg_reg_kernel(Src src, long long n, int G, int A, float* part_sums,
-               int* part_counts, int* part_total, uint8_t* mask_out) {
+agg_reg_kernel(Src src, long long n, int G, int A, int* ws, int* out,
+               int* ticket, uint8_t* mask_out) {
   constexpr int kWarps = kAggBlock / kWarp;
+  static_assert(GM * AM + GM + 1 <= 4 * kFoldThreads, "a fold lane a quad");
   __shared__ float s_sum[kWarps][GM * AM];
   __shared__ int s_cnt[kWarps][GM + 1];
+  __shared__ int s_last;
   RegAcc<GM, AM> acc;
   acc.zero();
 
@@ -226,31 +287,42 @@ agg_reg_kernel(Src src, long long n, int G, int A, float* part_sums,
   if (lane == 0) s_cnt[warp][GM] = kept;
   __syncthreads();
 
-  const long long b = blockIdx.x;
-  const int GA = G * A;
-  for (int o = threadIdx.x; o <= GA + G; o += kAggBlock) {
-    if (o < GA) {
+  const int GA = G * A, O = agg_outputs(G, A), words = agg_row_words(G, A);
+  int* row = ws + (long long)blockIdx.x * words;
+  for (int o = threadIdx.x; o < words; o += kAggBlock) {
+    if (o >= O) {
+      row[o] = 0;                   // the row's padding
+    } else if (o < GA) {
       const int at = (o / A) * AM + o % A;
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += s_sum[w][at];
-      part_sums[b * GA + o] = s;
+      row[o] = __float_as_int(s);
     } else {
       const int at = o < GA + G ? o - GA : GM;
       int c = 0;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) c += s_cnt[w][at];
-      if (o < GA + G) part_counts[b * G + (o - GA)] = c;
-      else part_total[b] = c;
+      row[o] = c;
     }
   }
+
+  // the fold: the block that draws the last ticket adds every partial
+  __threadfence();                  // this block's row before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();                  // every other row, after the ticket
+  fold_rows(ws, (int)gridDim.x, out, words, O, GA);
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
 template <class Src, int NV, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
 agg_shared_kernel(Src src, long long n, long long chunk, int G, int A,
-                  int reps, float* part_sums, int* part_counts,
-                  int* part_total, uint8_t* mask_out) {
+                  int reps, int* ws, uint8_t* mask_out) {
   constexpr int kV = NV > 0 ? NV : 1;
   extern __shared__ float smem[];
   __shared__ int scratch[kAggBlock / kWarp];
@@ -305,19 +377,19 @@ agg_shared_kernel(Src src, long long n, long long chunk, int G, int A,
   }
   __syncthreads();
 
-  const long long b = blockIdx.x;
+  int* row = ws + (long long)blockIdx.x * agg_row_words(G, A);
   for (int j = threadIdx.x; j < GA; j += kAggBlock) {
     float s = 0.f;
     for (int r = 0; r < reps; ++r) s += s_sums[(size_t)r * GA + j];
-    part_sums[b * GA + j] = s;
+    row[j] = __float_as_int(s);
   }
   for (int j = threadIdx.x; j < G; j += kAggBlock) {
     int c = 0;
     for (int r = 0; r < reps; ++r) c += s_counts[r * G + j];
-    part_counts[b * G + j] = c;
+    row[GA + j] = c;
   }
   const int t = block_sum<kAggBlock>(kept, scratch);
-  if (threadIdx.x == 0) part_total[b] = t;
+  if (threadIdx.x == 0) row[GA + G] = t;
 }
 
 constexpr int kFinWarps = 32;
@@ -340,28 +412,25 @@ __device__ __forceinline__ T strided_sum(const T* p, int w, int nb,
   return acc;
 }
 
-// Second launch: the G x A sums, G counts and the total over nb partials.
-// A block takes 32 outputs, one per lane, so each warp's reads are
-// contiguous; warp w adds the partials of blocks w, w + 32, ... in block
-// order, and the 32 warps' sums are added by a tree over warps (16, 8,
-// 4, 2, 1 apart).  The order is the same in every call.
+// The shared-memory regime's second launch: `out` = the sum of rows 0 ..
+// nb - 1 (rows of `stride` words, O of them outputs).  A block takes 32
+// outputs, one per lane, so each warp's reads are contiguous; warp w adds
+// the partials of blocks w, w + 32, ... in block order, and the 32 warps'
+// sums are added by a tree over warps (16, 8, 4, 2, 1 apart).  The order
+// is the same in every call.
 __global__ void __launch_bounds__(kWarp * kFinWarps)
-agg_finalize_kernel(const float* part_sums, const int* part_counts,
-                    const int* part_total, int nb, int G, int A,
-                    float* sums, int* counts, int* total) {
+agg_finalize_kernel(const int* ws, int* out, int nb, int stride, int O,
+                    int GA) {
   __shared__ float s_f[kFinWarps][kWarp + 1];
   __shared__ int s_i[kFinWarps][kWarp + 1];
   const int lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp;
-  const long long GA = (long long)G * A;
   const long long o = (long long)blockIdx.x * kWarp + lane;
   float f = 0.f;
   int c = 0;
   if (o < GA)
-    f = strided_sum(part_sums + o, w, nb, GA);
-  else if (o < GA + G)
-    c = strided_sum(part_counts + (o - GA), w, nb, G);
-  else if (o == GA + G)
-    c = strided_sum(part_total, w, nb, 1);
+    f = strided_sum(reinterpret_cast<const float*>(ws) + o, w, nb, stride);
+  else if (o < O)
+    c = strided_sum(ws + o, w, nb, stride);
   s_f[w][lane] = f;
   s_i[w][lane] = c;
   __syncthreads();
@@ -373,40 +442,67 @@ agg_finalize_kernel(const float* part_sums, const int* part_counts,
     }
     __syncthreads();
   }
-  if (w == 0) {
-    if (o < GA) sums[o] = s_f[0][lane];
-    else if (o < GA + G) counts[o - GA] = s_i[0][lane];
-    else if (o == GA + G) *total = s_i[0][lane];
-  }
+  if (w == 0 && o < O)
+    out[o] = o < GA ? __float_as_int(s_f[0][lane]) : s_i[0][lane];
 }
 
-// Launches the register regime over at most `nb` blocks, no more than are
-// resident on the card at once; `*grid` receives the number launched.
-template <class Src, int GM, int AM>
-int launch_reg(Src src, long long n, int G, int A, int nb, float* part_sums,
-               int* part_counts, int* part_total, uint8_t* mask_out,
-               cudaStream_t stream, int* grid) {
-  auto kernel = mask_out != nullptr ? agg_reg_kernel<Src, GM, AM, true>
-                                    : agg_reg_kernel<Src, GM, AM, false>;
-  int dev = 0, sms = 0, per_sm = 0;
+constexpr int kMaxDevices = 64;
+
+// Blocks of `kernel` resident on the current device at once, asked of
+// the CUDA runtime on a device's first call only and kept in `known` (one
+// array per kernel instance): the value depends on the instance and the
+// device alone, so threads that race to store it store the same number.
+template <class K>
+int resident_blocks(K kernel, std::atomic<int>* known, int* out) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) {
+    *out = known[dev].load(std::memory_order_relaxed);
+    if (*out > 0) return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kAggBlock, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *grid = nb < sms * per_sm ? nb : sms * per_sm;
-  kernel<<<*grid, kAggBlock, 0, stream>>>(src, n, G, A, part_sums,
-                                          part_counts, part_total, mask_out);
+  *out = sms * per_sm;
+  if (dev < kMaxDevices) known[dev].store(*out, std::memory_order_relaxed);
+  return 0;
+}
+
+// Launches the register regime (and its fold) over at most `nb` blocks, no
+// more than are resident on the card at once.
+template <class Src, int GM, int AM, bool kMask>
+int launch_reg(Src src, long long n, int G, int A, int* ws, int nb,
+               int* out, int* ticket, uint8_t* mask_out, cudaStream_t stream) {
+  static std::atomic<int> known[kMaxDevices];
+  auto kernel = agg_reg_kernel<Src, GM, AM, kMask>;
+  int resident = 0;
+  const int err = resident_blocks(kernel, known, &resident);
+  if (err != 0) return err;
+  const int grid = nb < resident ? nb : resident;
+  kernel<<<grid, kAggBlock, 0, stream>>>(src, n, G, A, ws, out, ticket,
+                                         mask_out);
   return (int)cudaGetLastError();
 }
 
+template <class Src, int GM, int AM>
+int launch_reg(Src src, long long n, int G, int A, int* ws, int nb,
+               int* out, int* ticket, uint8_t* mask_out, cudaStream_t stream) {
+  return mask_out != nullptr
+      ? launch_reg<Src, GM, AM, true>(src, n, G, A, ws, nb, out, ticket,
+                                      mask_out, stream)
+      : launch_reg<Src, GM, AM, false>(src, n, G, A, ws, nb, out, ticket,
+                                       nullptr, stream);
+}
+
+// The shared regime and its second launch.
 template <class Src, int NV>
-int launch_shared(Src src, long long n, int G, int A, int nb,
-                  float* part_sums, int* part_counts, int* part_total,
-                  uint8_t* mask_out, cudaStream_t stream) {
+int launch_shared(Src src, long long n, int G, int A, int* ws, int nb,
+                  int* out, uint8_t* mask_out, cudaStream_t stream) {
   const size_t per_rep = (size_t)G * (A + 1) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -432,53 +528,46 @@ int launch_shared(Src src, long long n, int G, int A, int nb,
   }
   long long chunk = (n + nb - 1) / nb;
   if (chunk < 1) chunk = 1;
-  kernel<<<nb, kAggBlock, smem, stream>>>(
-      src, n, chunk, G, A, (int)reps, part_sums, part_counts, part_total,
-      mask_out);
+  kernel<<<nb, kAggBlock, smem, stream>>>(src, n, chunk, G, A, (int)reps, ws,
+                                          mask_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int O = agg_outputs(G, A);
+  agg_finalize_kernel<<<(O + kWarp - 1) / kWarp, kWarp * kFinWarps, 0,
+                        stream>>>(ws, out, nb, agg_row_words(G, A), O, G * A);
   return (int)cudaGetLastError();
 }
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// `nb` must be agg_blocks(n, G, A); the partial buffers hold nb x G x A
-// floats, nb x G ints and nb ints.  `mask_out` (nullable) receives the
-// predicate as one byte per row, for the compaction of compact.cuh to
-// rank.  NV bounds A at compile time; GC is G where the source fixes it
-// (a generated source), 0 where G comes at run time (filter_agg.cu), so
-// that only the regimes a source can take are instantiated.
+// `nb` must be agg_blocks(n, G, A); `ws` holds nb x agg_row_words(G, A)
+// words and `out` one such row (the layout above), and `ticket` is the
+// stream's ticket, at 0.
+// `mask_out` (nullable) receives the predicate as one byte per row, for
+// the compaction of compact.cuh to rank.  NV bounds A at compile time; GC
+// is G where the source fixes it (a generated source), 0 where G comes at
+// run time (filter_agg.cu), so that only the regimes a source can take
+// are instantiated.
 template <class Src, int NV, int GC = 0>
-int launch_agg(Src src, long long n, int G, int A, int nb, float* part_sums,
-               int* part_counts, int* part_total, float* sums, int* counts,
-               int* total, uint8_t* mask_out, cudaStream_t stream) {
+int launch_agg(Src src, long long n, int G, int A, int nb, int* ws, int* out,
+               int* ticket, uint8_t* mask_out, cudaStream_t stream) {
   constexpr int kV = NV > 0 ? NV : 1;
   if (A > NV || (GC > 0 && G != GC)) return (int)cudaErrorInvalidValue;
-  int grid = nb, err = 0;
   if constexpr (GC > 0) {
     if constexpr (register_regime(GC, NV))
-      err = launch_reg<Src, GC, kV>(src, n, G, A, nb, part_sums, part_counts,
-                                    part_total, mask_out, stream, &grid);
+      return launch_reg<Src, GC, kV>(src, n, G, A, ws, nb, out, ticket,
+                                     mask_out, stream);
     else
-      err = launch_shared<Src, NV>(src, n, G, A, nb, part_sums, part_counts,
-                                   part_total, mask_out, stream);
+      return launch_shared<Src, NV>(src, n, G, A, ws, nb, out, mask_out,
+                                    stream);
   } else if (register_regime(G, A)) {
     if (G == 1)
-      err = launch_reg<Src, 1, cmin(kV, kRegMaxValsOneGroup)>(
-          src, n, G, A, nb, part_sums, part_counts, part_total, mask_out,
-          stream, &grid);
-    else
-      err = launch_reg<Src, kRegMaxGroups, cmin(kV, kRegMaxVals)>(
-          src, n, G, A, nb, part_sums, part_counts, part_total, mask_out,
-          stream, &grid);
-  } else {
-    err = launch_shared<Src, NV>(src, n, G, A, nb, part_sums, part_counts,
-                                 part_total, mask_out, stream);
+      return launch_reg<Src, 1, cmin(kV, kRegMaxValsOneGroup)>(
+          src, n, G, A, ws, nb, out, ticket, mask_out, stream);
+    return launch_reg<Src, kRegMaxGroups, cmin(kV, kRegMaxVals)>(
+        src, n, G, A, ws, nb, out, ticket, mask_out, stream);
   }
-  if (err != 0) return err;
-  const long long outs = (long long)G * A + G + 1;
-  agg_finalize_kernel<<<(int)((outs + kWarp - 1) / kWarp),
-                        kWarp * kFinWarps, 0, stream>>>(
-      part_sums, part_counts, part_total, grid, G, A, sums, counts, total);
-  return (int)cudaGetLastError();
+  return launch_shared<Src, NV>(src, n, G, A, ws, nb, out, mask_out, stream);
 }
 
 }  // namespace repro

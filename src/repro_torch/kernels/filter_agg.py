@@ -23,12 +23,16 @@ predicate as one byte per row and the one-launch compaction ranks it.
 
 Which version runs is decided by the tensors' device alone: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel (see
-`csrc/filter_agg.cuh` for its design) or raises.  `launches` counts
-kernel launches only.
+`csrc/filter_agg.cuh` for its design) or raises.  A CUDA call is one
+launch for each chunk of the value columns (`value_chunks`: at most 16
+columns a launch, fewer where G x (A + 1) words would not fit one
+block's shared memory), so every shape the engine's gate admits runs.
+`launches` counts kernel launches only.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -100,21 +104,23 @@ def selective_filter_agg_plain(cols: dict, scalars: list, pred_fn,
 # ---------------------------------------------------------------------------
 
 _STATIC: list = []
-_AGG_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 7
+MAX_VALS = 16           # csrc/filter_agg.cu: kMaxVals
 
 
 def _lib():
     if not _STATIC:
         lib = build.load("filter_agg", build.static_source("filter_agg"))
-        vp = ctypes.c_void_p
-        lib.repro_agg_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                         ctypes.c_int]
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_agg_blocks.argtypes = [ll, i, i]
         lib.repro_filter_agg_max_vals.argtypes = []
-        lib.repro_filter_agg.argtypes = [vp, vp, vp, ctypes.c_int] + _AGG_ARGS
+        lib.repro_filter_agg.argtypes = [vp, vp, vp, i, ll, i, i, vp, vp, vp,
+                                         vp]
         for fn in (lib.repro_agg_blocks, lib.repro_filter_agg_max_vals,
                    lib.repro_filter_agg):
             fn.restype = ctypes.c_int
+        if lib.repro_filter_agg_max_vals() != MAX_VALS:
+            raise RuntimeError("filter_agg.cu and filter_agg.py disagree on "
+                               "the value columns a launch takes")
         _STATIC.append(lib)
     return _STATIC[0]
 
@@ -128,21 +134,77 @@ def _check_fits(n_groups: int, n_vals: int):
             "shared memory")
 
 
-def _outputs(lib, n: int, n_groups: int, n_vals: int, device):
-    """(launch args after n: G, nb and the six buffers, the partials,
-    the result tuple).  The caller holds the partials until the launch
-    is queued: a freed buffer goes back to the allocator at once, and the
-    next allocation on the stream may take it while the kernel has yet to
-    write there."""
-    nb = lib.repro_agg_blocks(n, n_groups, n_vals)
-    f32, i32 = torch.float32, torch.int32
-    parts = (torch.empty((nb, n_groups, n_vals), dtype=f32, device=device),
-             torch.empty((nb, n_groups), dtype=i32, device=device),
-             torch.empty(nb, dtype=i32, device=device))
-    res = (torch.empty((n_groups, n_vals), dtype=f32, device=device),
-           torch.empty(n_groups, dtype=i32, device=device),
-           torch.empty((), dtype=i32, device=device))
-    return [n_groups, nb] + [build.ptr(t) for t in parts + res], parts, res
+def value_chunks(n_groups: int, n_vals: int) -> list[tuple[int, int]]:
+    """`[start, stop)` ranges of the value columns, in order, one per
+    launch: each holds at most `MAX_VALS` columns and fits G x (a + 1)
+    4-byte accumulators in one block's shared memory (at least 13 columns
+    a launch for G <= 4096).  No value column is one launch of none.
+    Raises where even one column does not fit beside G's counts."""
+    _check_fits(n_groups, min(n_vals, 1))
+    if n_vals == 0:
+        return [(0, 0)]
+    width = min(MAX_VALS, SMEM_LIMIT // (4 * n_groups) - 1)
+    return [(s, min(s + width, n_vals)) for s in range(0, n_vals, width)]
+
+
+@functools.lru_cache(maxsize=1024)
+def _agg_blocks(n: int, n_groups: int, n_vals: int) -> int:
+    return _lib().repro_agg_blocks(n, n_groups, n_vals)
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device, stream) -> torch.Tensor:
+    """The fold's ticket for (device, stream): one int32, zeroed once when
+    it is made and never freed (`csrc/filter_agg.cuh`: launches on one
+    stream run one after another and each leaves it at 0)."""
+    key = (device.index, stream.value)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+# partial words a result may keep alive: a call's partials at most this
+# large share one allocation with its result (every register-regime call:
+# at most 1,024 rows of 76 words), larger ones are freed once the launch
+# is queued
+SHARED_ALLOC_WORDS = 1 << 17
+
+
+def _outputs(n: int, n_groups: int, n_vals: int, device):
+    """(nb, partials, result pointer, result): nb rows of G x A + G + 1
+    int32 words padded to a multiple of 4 (`csrc/filter_agg.cuh`), and
+    one more such row for the result, whose `(sums, counts, total)` are
+    views.  Small partials and the result are one allocation, the result
+    its last row, so the result keeps them alive; larger partials are an
+    allocation of their own, which the caller holds until the launch has
+    been queued."""
+    nb = _agg_blocks(n, n_groups, n_vals)
+    ga = n_groups * n_vals
+    row = (ga + n_groups + 1 + 3) // 4 * 4
+    part = nb * row
+    if part <= SHARED_ALLOC_WORDS:
+        ws = res = torch.empty(part + row, dtype=torch.int32, device=device)
+        at = part
+    else:
+        ws = torch.empty(part, dtype=torch.int32, device=device)
+        res = torch.empty(row, dtype=torch.int32, device=device)
+        at = 0
+    return nb, ws, res.data_ptr() + 4 * at, (   # as_strided: one view op each
+        res.view(torch.float32).as_strided((n_groups, n_vals), (n_vals, 1),
+                                           at),
+        res.as_strided((n_groups,), (1,), at + ga),
+        res.as_strided((), (), at + ga + n_groups))
+
+
+def _cat_sums(results: list):
+    """One call's result from its launches: the sums side by side, the
+    counts and the total from the first launch."""
+    if len(results) == 1:
+        return results[0]
+    return (torch.cat([r[0] for r in results], 1), *results[0][1:])
 
 
 def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
@@ -156,20 +218,20 @@ def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
     if gidx.shape[0] != n:
         raise ValueError("filter_agg columns differ in length")
     lib = _lib()
-    if len(values) > lib.repro_filter_agg_max_vals():
-        raise ValueError(f"filter_agg takes at most "
-                         f"{lib.repro_filter_agg_max_vals()} value columns "
-                         f"(got {len(values)})")
-    _check_fits(n_groups, len(values))
-    args, parts, (sums, counts, _total) = _outputs(
-        lib, n, n_groups, len(values), mask.device)
-    ptrs = (ctypes.c_void_p * max(len(values), 1))(
-        *[v.data_ptr() for v in values])
-    build.check(lib.repro_filter_agg(
-        build.ptr(mask), build.ptr(gidx), ptrs, len(values), n, *args,
-        build.stream_ptr(mask)), "filter_agg")
-    del parts          # queued: the stream orders any reuse after the kernel
-    launches["filter_agg"] += 1
+    stream = build.stream_ptr(mask)
+    ticket = _ticket(mask.device, stream)
+    results = []
+    for start, stop in value_chunks(n_groups, len(values)):
+        chunk = values[start:stop]
+        nb, ws, out, res = _outputs(n, n_groups, len(chunk), mask.device)
+        ptrs = (ctypes.c_void_p * max(len(chunk), 1))(
+            *[v.data_ptr() for v in chunk])
+        build.check(lib.repro_filter_agg(
+            build.ptr(mask), build.ptr(gidx), ptrs, len(chunk), n, n_groups,
+            nb, build.ptr(ws), out, build.ptr(ticket), stream), "filter_agg")
+        launches["filter_agg"] += 1
+        results.append(res)
+    sums, counts, _total = _cat_sums(results)
     return sums, counts
 
 
@@ -183,19 +245,30 @@ def selective_source(cols: dict, scalars: list, pred_fn, value_fns: list,
         pred_fn.expr, [f.expr for f in value_fns], radix, n_groups, em)
 
 
-_GEN_LIBS: dict[str, ctypes.CDLL] = {}
+def selective_key(cols: dict, scalars: list, pred_fn, value_fns: list,
+                  gidx_fn, n_groups: int) -> tuple:
+    """The generated library's key: everything its source depends on,
+    cheaper to make than the source."""
+    return (codegen.expr_key(pred_fn.expr),
+            tuple(codegen.expr_key(f.expr) for f in value_fns),
+            tuple(gidx_fn.radix) if gidx_fn is not None else (), n_groups,
+            codegen.operand_key(cols, pred_fn.param_names, scalars))
+
+
+_GEN_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def _selective_lib(cols, scalars, pred_fn, value_fns, gidx_fn, n_groups):
-    name, src = selective_source(cols, scalars, pred_fn, value_fns, gidx_fn,
-                                 n_groups)
-    lib = _GEN_LIBS.get(src)
+    key = selective_key(cols, scalars, pred_fn, value_fns, gidx_fn, n_groups)
+    lib = _GEN_LIBS.get(key)
     if lib is None:
-        lib = build.load(name, src)
-        vp = ctypes.c_void_p
-        lib.repro_selective_agg.argtypes = [vp, vp, vp] + _AGG_ARGS + [vp]
+        lib = build.load(*selective_source(cols, scalars, pred_fn, value_fns,
+                                           gidx_fn, n_groups))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_selective_agg.argtypes = [vp, vp, vp, ll, i, i, vp, vp, vp,
+                                            vp, vp]
         lib.repro_selective_agg.restype = ctypes.c_int
-        _GEN_LIBS[src] = lib
+        _GEN_LIBS[key] = lib
     return lib
 
 
@@ -204,31 +277,38 @@ def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
     _check_compaction(capacity, translate)
     for name, t in cols.items():
         build.check_cuda_1d(name, t)
-    n = next(iter(cols.values())).shape[0]
+    first = next(iter(cols.values()))
+    n = first.shape[0]
     if any(t.shape[0] != n for t in cols.values()):
         raise ValueError("selective_filter_agg columns differ in length")
     if gidx_fn is not None and gidx_fn.n_groups != n_groups:
         raise ValueError("group index and n_groups disagree")
-    _check_fits(n_groups, len(value_fns))
-    lib = _selective_lib(cols, scalars, pred_fn, value_fns, gidx_fn,
-                         n_groups)
-    dev = next(iter(cols.values())).device
-    args, parts, res = _outputs(_lib(), n, n_groups, len(value_fns), dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev) if capacity else None
+    chunks = value_chunks(n_groups, len(value_fns))
+    dev = first.device
+    stream = build.stream_ptr(first)
+    ticket = _ticket(dev, stream)
+    col_ptrs = (ctypes.c_void_p * len(cols))(
+        *[t.data_ptr() for t in cols.values()])
     fp, ip = codegen.split_scalars(pred_fn.param_names, scalars)
-    build.check(lib.repro_selective_agg(
-        (ctypes.c_void_p * len(cols))(*[t.data_ptr() for t in cols.values()]),
-        (ctypes.c_double * max(len(fp), 1))(*fp),
-        (ctypes.c_longlong * max(len(ip), 1))(*ip),
-        n, *args, build.ptr(mask),
-        build.stream_ptr(next(iter(cols.values())))),
-        "selective_filter_agg")
-    del parts          # queued: the stream orders any reuse after the kernel
+    fp = (ctypes.c_double * max(len(fp), 1))(*fp)
+    ip = (ctypes.c_longlong * max(len(ip), 1))(*ip)
+    mask = torch.empty(n, dtype=torch.bool, device=dev) if capacity else None
+    results = []
+    for k, (start, stop) in enumerate(chunks):
+        fns = value_fns[start:stop]
+        lib = _selective_lib(cols, scalars, pred_fn, fns, gidx_fn, n_groups)
+        nb, ws, out, res = _outputs(n, n_groups, len(fns), dev)
+        build.check(lib.repro_selective_agg(
+            col_ptrs, fp, ip, n, n_groups, nb, build.ptr(ws), out,
+            build.ptr(ticket), build.ptr(mask if k == 0 else None), stream),
+            "selective_filter_agg")
+        results.append(res)
+    res = _cat_sums(results)
     if not capacity:
-        launches["selective_filter_agg"] += 1
+        launches["selective_filter_agg"] += len(chunks)
         return res
     idx, _count, *slot = rank_mask_cuda(mask, capacity, translate)
-    launches["selective_filter_agg_capacity"] += 1
+    launches["selective_filter_agg_capacity"] += len(chunks)
     return res + (idx, *slot)
 
 

@@ -324,6 +324,109 @@ def test_compact_kernel_many_tiles(cuda, p, translate):
             _same(kc.compact(mask, cap, translate=translate), want)
 
 
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("translate", [False, True])
+def test_compact_pred_kernel_many_tiles(cuda, p, translate):
+    """The predicate evaluated inside the look-back scan (one launch),
+    over 2^22 + 37 rows at densities 0, 0.5 and 1, capacity below and
+    above the count, each call 20 times."""
+    n = (1 << 22) + 37
+    rng = np.random.default_rng(int(10 * p) + 1)
+    cols = {"x": torch.from_numpy(rng.random(n, dtype=np.float32)).to(cuda)}
+    pred = fu.TileFn(Cmp("<", Col("x"), Param("t", "float32")), ["t"])
+    count = int(kc.compact_pred_plain(cols, [p], pred, 1)[1])
+    before = kc.launches["compact_pred"]
+    for cap in (max(count // 3, 1), count + 5):
+        want = kc.compact_pred_plain(cols, [p], pred, cap, translate)
+        for _ in range(20):
+            _same(kc.compact_pred(cols, [p], pred, cap, translate=translate),
+                  want)
+    assert kc.launches["compact_pred"] == before + 40
+
+
+@pytest.mark.parametrize("n", [1, 37, 908_340])
+@pytest.mark.parametrize("n_groups", [1, 7])
+def test_selective_kernel_repeats_bit_for_bit(cuda, n, n_groups):
+    """The register regime folds its partials in the launch, the last
+    block drawing the stream's ticket and setting it back to 0: 20 calls
+    back to back, each equal to the plain version and bit-identical to
+    the first (a ticket left behind would skip or misplace the fold)."""
+    cols = _cols(n, cuda)
+    pred = fu.TileFn(_pred(), ["qty"])
+    vals = [fu.TileFn(Col("f0"), ["qty"]), fu.TileFn(Col("f1"), ["qty"])]
+    gidx = fu.GroupIndex([("c0", 7, 1)], 7) if n_groups == 7 else None
+    want = kf.selective_filter_agg_plain(cols, [24.0], pred, vals, gidx,
+                                         n_groups)
+    before = kf.launches["selective_filter_agg"]
+    calls = [kf.selective_filter_agg(cols, [24.0], pred, vals, gidx,
+                                     n_groups) for _ in range(20)]
+    assert kf.launches["selective_filter_agg"] == before + 20
+    for got in calls:
+        _same(got, want)
+        assert torch.equal(_bits(got[0]), _bits(calls[0][0]))
+        assert torch.equal(got[1], calls[0][1]) and int(got[2]) == \
+            int(want[2])
+
+
+def test_fold_ticket_is_kept_per_stream(cuda):
+    """Calls on a second stream draw their own ticket; both streams' sums
+    are bit-identical to the default stream's."""
+    n = 1 << 20
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random(n) < 0.6).to(cuda)
+    gidx = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(cuda)
+    vals = [torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+            for _ in range(7)]
+    base = kf.filter_agg(mask, gidx, vals, 6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [kf.filter_agg(mask, gidx, vals, 6) for _ in range(5)]
+    torch.cuda.current_stream().wait_stream(side)
+    again = [kf.filter_agg(mask, gidx, vals, 6) for _ in range(5)]
+    torch.cuda.synchronize()
+    for g in got + again:
+        assert torch.equal(_bits(g[0]), _bits(base[0]))
+        assert torch.equal(g[1], base[1])
+
+
+def test_dense_4096_groups_14_values_on_card_matches_cpu(cuda):
+    """G = 4096 with A = 14 does not fit one block's shared memory
+    (4096 x 15 x 4 B): the wrapper takes it in two launches (13 + 1
+    columns) and answers as the port does on the CPU."""
+    n, G, A = (1 << 20) + 3, 4096, 14
+    rng = np.random.default_rng(11)
+    mask = torch.from_numpy(rng.random(n) < 0.7)
+    gidx = torch.from_numpy(rng.integers(-1, G + 1, n).astype(np.int32))
+    vals = [torch.from_numpy(rng.normal(size=n).astype(np.float32))
+            for _ in range(A)]
+    want = kf.filter_agg(mask, gidx, vals, G)               # on the CPU
+    before = kf.launches["filter_agg"]
+    got = kf.filter_agg(mask.to(cuda), gidx.to(cuda),
+                        [v.to(cuda) for v in vals], G)
+    assert kf.launches["filter_agg"] == before + 2
+    assert got[0].shape == (G, A)
+    _same([t.cpu() for t in got], want)
+
+
+@pytest.mark.parametrize("n_groups", [1, 7])
+def test_selective_wide_values_on_card_matches_cpu(cuda, n_groups):
+    """17 value columns through the generated kernel: two launches (16 +
+    1), counts and the total from the first."""
+    n = 5000
+    cols = _cols(n, cuda)
+    pred = fu.TileFn(_pred(), ["qty"])
+    vals = [fu.TileFn(Col("f0" if k % 2 else "f1"), ["qty"])
+            for k in range(17)]
+    gidx = fu.GroupIndex([("c0", 7, 1)], 7) if n_groups == 7 else None
+    before = kf.launches["selective_filter_agg"]
+    got = kf.selective_filter_agg(cols, [24.0], pred, vals, gidx, n_groups)
+    assert kf.launches["selective_filter_agg"] == before + 2
+    cpu = {k: v.cpu() for k, v in cols.items()}
+    want = kf.selective_filter_agg(cpu, [24.0], pred, vals, gidx, n_groups)
+    _same([t.cpu() for t in got], want)
+
+
 def test_library_surface_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(3)
     n = 70_000
@@ -374,6 +477,26 @@ def test_cuda_tensor_never_takes_plain_path(cuda):
 @pytest.fixture(scope="module")
 def sdb():
     return Database.tpch(sf=0.05, seed=0)
+
+
+def test_wide_aggregation_on_card_matches_cpu(cuda, sdb):
+    """ROADMAP Queue 3's plan, 17 sums beside l_returnflag, at
+    opt-pallas: the engine hands the aggregation G = 3, A = 17, which the
+    wrapper takes in two launches, and the answer is the CPU's."""
+    from repro_torch.core import ir
+    from repro_torch.core.expr import col
+
+    def plan():
+        return ir.Agg(ir.Scan("lineitem"), ["l_returnflag"],
+                      [ir.AggSpec(f"s{k}", "sum", col("l_quantity"))
+                       for k in range(17)])
+
+    want = CompiledQuery(plan(), sdb, preset("opt-pallas"),
+                         device="cpu").run()
+    before = kf.launches["filter_agg"]
+    got = CompiledQuery(plan(), sdb, preset("opt-pallas")).run()
+    assert kf.launches["filter_agg"] == before + 2
+    assert_same(got, want, False)
 
 
 @pytest.mark.parametrize("pname", ["opt", "opt-pallas"])

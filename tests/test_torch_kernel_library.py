@@ -452,6 +452,14 @@ void reg_agg(const unsigned char* m, const int* g, const float* v,
   }
   *kept = acc.kept;
 }
+int fold_lanes(int outputs) { return repro::fold_lanes(outputs); }
+// the register regime's fold of `rows` partial rows of `stride` words
+// (`outputs` of them, the first GA float sums), in the kernel's order of
+// additions
+void fold(const int* ws, long long stride, int rows, int outputs, int GA,
+          int* out) {
+  repro::fold_serial(ws, stride, rows, outputs, GA, out);
+}
 }
 """
 
@@ -469,6 +477,8 @@ def agg_shim(tmp_path_factory):
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.regime.argtypes = [i, i]
     lib.reg_agg.argtypes = [vp, vp, vp, ll, i, i, vp, vp, vp]
+    lib.fold_lanes.argtypes = [i]
+    lib.fold.argtypes = [vp, ll, i, i, i, vp]
     return lib
 
 
@@ -515,6 +525,62 @@ def test_register_regime_boundary(agg_shim, G, A, regs):
     """Which (G, A) the kernels aggregate in registers (bit-identical
     sums): every shape of the engine's main path does."""
     assert agg_shim.regime(G, A) == int(regs)
+
+
+def _fold_in_order(parts, o, lanes):
+    """Output o of the fold as its order is documented: lane r adds rows
+    r, r + W, ... in row order, then the lanes by a tree (r += r + W/2,
+    then r + W/4, ...), every addition in the output's own type."""
+    add = (lambda a, b: np.float32(a + b)) if parts.dtype == np.float32 \
+        else (lambda a, b: np.int32(a + b))
+    zero = parts.dtype.type(0)
+    acc = []
+    for r in range(lanes):
+        a = zero
+        for b in range(r, parts.shape[0], lanes):
+            a = add(a, parts[b, o])
+        acc.append(a)
+    h = lanes // 2
+    while h:
+        for r in range(h):
+            acc[r] = add(acc[r], acc[r + h])
+        h //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("rows,G,A", [
+    (887, 1, 1), (264, 6, 7), (256, 7, 2),     # q6, q1, q12 on a full card
+    (1, 1, 0), (37, 8, 8), (1024, 1, 16)])
+def test_register_fold_order_is_fixed(agg_shim, rows, G, A):
+    """The register regime's in-kernel fold adds the partials in its
+    documented fixed order (float sums bit for bit, counts exact) and
+    gives the same bits on a second call: the order depends on (rows,
+    outputs) alone, never on which block came last.  It runs on the host
+    through the kernel's own `fold_lane` and `fold_tree`, the two steps
+    `fold_rows` calls; only the mapping of lanes to threads and the
+    barriers are the kernel's alone."""
+    ga, outputs = G * A, G * A + G + 1
+    stride = (outputs + 3) // 4 * 4
+    lanes = agg_shim.fold_lanes(outputs)
+    assert lanes == 256 // (1 << ((outputs + 3) // 4 - 1).bit_length())
+    rng = np.random.default_rng(rows * 100 + outputs)
+    sums = (rng.normal(size=(rows, ga))
+            * 10.0 ** rng.integers(-3, 7, (rows, ga))).astype(np.float32)
+    counts = rng.integers(0, 1 << 20, (rows, outputs - ga)).astype(np.int32)
+    ws = np.zeros((rows, stride), np.int32)
+    ws[:, :ga] = sums.view(np.int32)
+    ws[:, ga:outputs] = counts
+    first, again = np.zeros(outputs, np.int32), np.zeros(outputs, np.int32)
+    for out in (first, again):
+        agg_shim.fold(ws.ctypes.data, stride, rows, outputs, ga,
+                      out.ctypes.data)
+    np.testing.assert_array_equal(first, again)
+    want_sums = [_fold_in_order(sums, o, lanes) for o in range(ga)]
+    _same_bits(first[:ga].view(np.float32), want_sums)
+    np.testing.assert_array_equal(
+        first[ga:], [_fold_in_order(counts, o, lanes)
+                     for o in range(outputs - ga)])
+    np.testing.assert_array_equal(first[ga:], counts.sum(0))
 
 
 @pytest.mark.parametrize("n,cap", [(37, 16), (5000, 256)])
@@ -628,3 +694,179 @@ def test_subnormal_literal_survives_codegen_and_build_flags():
     flags = " ".join(build.NVCC_FLAGS)
     for bad in ("fast-math", "fast_math", "ftz=true", "ftz"):
         assert bad not in flags
+
+
+# ---------------------------------------------------------------------------
+# launches per call: value chunks, the one-pass compact_pred, library keys
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("G,A", [(3, 17), (4096, 14), (1, 16), (8, 0),
+                                 (4096, 1)])
+def test_value_chunks_fit_every_launch(G, A):
+    """The CUDA wrappers cut A value columns into launches that each take
+    at most the static library's 16 columns and fit G x (a + 1) words in
+    one block's shared memory; the chunks cover A in order, and for
+    G <= 4096 each but the last holds at least 13 columns."""
+    chunks = kfa.value_chunks(G, A)
+    assert chunks[0][0] == 0 and chunks[-1][1] == A
+    for (a0, a1), (b0, _b1) in zip(chunks, chunks[1:]):
+        assert a1 == b0
+    for start, stop in chunks:
+        a = stop - start
+        assert a <= kfa.MAX_VALS == 16
+        assert G * (a + 1) * 4 <= kfa.SMEM_LIMIT
+    assert all(stop - start >= min(13, A) for start, stop in chunks[:-1])
+    assert all(stop > start for start, stop in chunks) or chunks == [(0, 0)]
+    assert 'kMaxVals = 16' in (CSRC / "filter_agg.cu").read_text()
+
+
+def test_value_chunks_raise_where_no_column_fits():
+    G = kfa.SMEM_LIMIT // 8 + 1           # G x 2 x 4 B > SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        kfa.value_chunks(G, 1)
+    assert kfa.value_chunks(G - 1, 1) == [(0, 1)]
+
+
+@pytest.mark.parametrize("G,A,nb", [(1, 1, 264), (8, 8, 1024),
+                                    (4096, 13, 1024)])
+def test_aggregation_result_keeps_only_small_partials(monkeypatch, G, A, nb):
+    """The aggregation's result is one row of the partials' layout: in the
+    partials' own allocation, right after them, while they are small
+    (every register-regime shape), and an allocation of its own beside
+    large partials, so that a result the engine keeps never holds them
+    alive.  The kernel's `out` pointer is the result's first word."""
+    monkeypatch.setattr(kfa, "_agg_blocks", lambda n, g, a: nb)
+    got_nb, ws, out, (sums, counts, total) = kfa._outputs(
+        10, G, A, torch.device("cpu"))
+    row = (G * A + G + 1 + 3) // 4 * 4
+    shared = nb * row <= kfa.SHARED_ALLOC_WORDS
+    assert shared == (G * A <= 64)
+    assert got_nb == nb
+    assert ws.numel() == nb * row + (row if shared else 0)
+    same = sums.untyped_storage().data_ptr() == ws.untyped_storage().data_ptr()
+    assert same == shared
+    assert out % 16 == 0
+    assert out == (ws.data_ptr() + 4 * nb * row if shared
+                   else sums.untyped_storage().data_ptr())
+    assert sums.shape == (G, A) and sums.dtype == torch.float32
+    assert counts.shape == (G,) and total.shape == ()
+    assert sums.data_ptr() == out
+    assert counts.data_ptr() == out + 4 * G * A
+    assert total.data_ptr() == out + 4 * (G * A + G)
+
+
+def test_compact_pred_source_is_one_pass():
+    """The generated compact_pred instantiates the look-back scan on the
+    predicate's own functor (one memset, one launch): no byte pass, and
+    the workspace holds no byte mask."""
+    pe = _preds(PE)["q6like"]
+    names = sorted(PE.expr_columns(pe))
+    em = codegen.Emitter({c: "float" if c.startswith("f") else "int"
+                          for c in names}, {})
+    src = codegen.compact_pred_source(pe, em)
+    assert "repro::compact_into(s, n, ws" in src
+    assert "bytes" not in src and "MaskSource" not in src
+    # every column is loaded before the predicate reads it
+    body = src[src.index("bool pred("):src.index("int group(")]
+    assert body.index("= c0[i];") < body.index("return")
+    header = (CSRC / "compact.cuh").read_text()
+    assert "predicate_bytes" not in header and "bytes)" not in header
+    kc = importlib.import_module("repro_torch.kernels.compact")
+    for n, cap, tr in [(0, 1, False), (5000, 64, False), (5000, 64, True),
+                       (1 << 20, 3, True)]:
+        ws, out = kc._workspace(n, cap, tr, torch.device("cpu"))
+        assert ws.shape[0] == kc.workspace_head(n) + cap + (n if tr else 0)
+        assert out[0].shape == (cap,) and out[1].ndim == 0
+
+
+class _FakeLib:
+    """A loaded library's stand-in: the wrappers set argtypes on it."""
+
+    def __getattr__(self, name):
+        fn = type("Fn", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.fixture
+def count_generation(monkeypatch):
+    """Count source generations behind the generated libraries' caches,
+    with `build.load` stubbed (no nvcc here)."""
+    kc = importlib.import_module("repro_torch.kernels.compact")
+    counts = {"compact_pred": 0, "selective_agg": 0}
+    for name in counts:
+        real = getattr(codegen, f"{name}_source")
+
+        def counted(*a, _name=name, _real=real, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(codegen, f"{name}_source", counted)
+    monkeypatch.setattr(build, "load", lambda name, src: _FakeLib())
+    monkeypatch.setattr(kc, "_PRED_LIBS", {})
+    monkeypatch.setattr(kfa, "_GEN_LIBS", {})
+    return kc, counts
+
+
+def _key_operands(int_dtype=torch.int32, scalar=40, grouped=True):
+    cols = {"c0": torch.zeros(8, dtype=torch.int32),
+            "f0": torch.zeros(8), "i0": torch.zeros(8, dtype=int_dtype),
+            "k0": torch.zeros(8, dtype=torch.int32)}
+    pred = PE.And(PE.Cmp("<", PE.Col("i0"), PE.Param("pi", "int32")),
+                  PE.Cmp(">=", PE.Col("f0"), PE.Const(0.05)))
+    vals = [fu.TileFn(PE.Col("f0"), ["pi"]),
+            fu.TileFn(PE.Arith("*", PE.Col("f0"), PE.Const(2)), ["pi"])]
+    gfn = fu.GroupIndex([("c0", 7, 3), ("k0", 3, 1)], 21) if grouped \
+        else None
+    return cols, [scalar], fu.TileFn(pred, ["pi"]), vals, gfn
+
+
+def test_generated_library_key_skips_generation_on_a_hit(count_generation):
+    """An equal Expr tree (another object) with another parameter value
+    finds the library built for the first: one source generation for
+    each generated kernel."""
+    kc, counts = count_generation
+    for scalar in (40, 7, 40):
+        cols, sc, pred, vals, gfn = _key_operands(scalar=scalar)
+        kc._pred_lib(cols, sc, pred)
+        kfa._selective_lib(cols, sc, pred, vals, gfn, 21)
+    assert counts == {"compact_pred": 1, "selective_agg": 1}
+    assert len(kc._PRED_LIBS) == len(kfa._GEN_LIBS) == 1
+
+
+def test_generated_library_key_separates_different_sources():
+    """Every difference that changes the generated source changes the
+    key: a column dtype, a parameter kind, the value list, G, a constant
+    of another type or sign."""
+    kc = importlib.import_module("repro_torch.kernels.compact")
+    cols, sc, pred, vals, gfn = _key_operands()
+
+    def keys(cols=cols, sc=sc, pred=pred, vals=vals, gfn=gfn, G=21):
+        return (kc.pred_key(cols, sc, pred),
+                kfa.selective_key(cols, sc, pred, vals, gfn, G))
+
+    base = keys()
+    assert keys(sc=[7]) == base
+    wide = dict(cols, i0=torch.zeros(8))
+    narrow = dict(cols, i0=torch.zeros(8, dtype=torch.bool))
+    other_const = fu.TileFn(PE.And(pred.expr.lhs, PE.Cmp(
+        ">=", PE.Col("f0"), PE.Const(0))), ["pi"])
+    neg_zero = (fu.TileFn(PE.Cmp(">=", PE.Col("f0"), PE.Const(0.0)), []),
+                fu.TileFn(PE.Cmp(">=", PE.Col("f0"), PE.Const(-0.0)), []))
+    variants = [keys(cols=wide), keys(cols=narrow), keys(sc=[7.5]),
+                keys(sc=[True]), keys(pred=other_const),
+                keys(vals=vals[:1]), keys(vals=vals[::-1]),
+                keys(gfn=fu.GroupIndex([("c0", 7, 3), ("k0", 3, 1)], 22),
+                     G=22),
+                keys(gfn=None, G=1)]
+    for v in variants:
+        assert v[1] != base[1]
+    for v in variants[:5]:
+        assert v[0] != base[0]
+    a, b = (kc.pred_key(cols, [], f) for f in neg_zero)
+    assert a != b
+    assert neg_zero[0].expr == neg_zero[1].expr     # equal as trees
+    assert codegen.expr_key(PE.Const(1)) != codegen.expr_key(PE.Const(1.0))
+    # what the key separates, the source separates too
+    em = codegen.Emitter(codegen.column_types(cols), {"pi": "int"})
+    assert (codegen.compact_pred_source(neg_zero[0].expr, em)
+            != codegen.compact_pred_source(neg_zero[1].expr, em))

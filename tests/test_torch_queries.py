@@ -210,6 +210,43 @@ def test_subnormal_literal_keeps_its_rows(db, pdb):
     assert_same(got, want, False)
 
 
+def wide_agg_plan(ir, X):
+    """17 sums beside one group key: more value columns than one CUDA
+    aggregation launch takes (16), which the engine's kernel gate admits
+    (ROADMAP Queue 3)."""
+    return ir.Agg(ir.Scan("lineitem"), ["l_returnflag"],
+                  [ir.AggSpec(f"s{k}", "sum", X.col("l_quantity"))
+                   for k in range(17)])
+
+
+def test_wide_aggregation_matches_reference_and_oracle(db, pdb,
+                                                       monkeypatch):
+    """The plan reaches the port's aggregation entry point with G = 3,
+    A = 17 at opt-pallas (on the card, two launches of 16 and 1 columns)
+    and answers as the reference's CompiledQuery and Volcano do."""
+    from repro.core import expr as RE
+    from repro.core import ir as rir
+    from repro_torch.core import expr as E
+    from repro_torch.core import ir as pir
+
+    seen = []
+    real = ops.filter_agg_query
+
+    def record(mask, gidx, vals, n_groups):
+        seen.append((n_groups, len(vals)))
+        return real(mask, gidx, vals, n_groups)
+
+    monkeypatch.setattr(ops, "filter_agg_query", record)
+    got = CompiledQuery(wide_agg_plan(pir, E), pdb, preset("opt-pallas"),
+                        device="cpu").run()
+    assert seen == [(3, 17)]
+    ref = RefCompiledQuery(wide_agg_plan(rir, RE), db,
+                           ref_preset("opt-pallas")).run()
+    assert_same(got, ref, False)
+    assert_same(got, VolcanoEngine(db).execute(wide_agg_plan(rir, RE)),
+                False)
+
+
 def test_q1_count_order_is_exact_int32(pdb, oracle):
     """q1's count column comes back as int32 at both presets (the kernel's
     exact count at opt-pallas, no float32 detour) and equals the Volcano
