@@ -7,10 +7,13 @@ Phases (any failure raises; the script then exits non-zero and prints no
 result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. generate TPC-H at SF 1 and run q1, q3, q6 and q12 at `opt` and
-     `opt-pallas` on the CPU — the port's own reference answers — while
-     recording the operands the opt-pallas plans hand to each kernel;
-  3. build every kernel library (one nvcc per source, all at once);
+  2. generate TPC-H at SF 1 and run all 15 queries at `opt` and
+     `opt-pallas` on the CPU — the port's own reference answers — and the
+     row layout of q1, q6, q12 and q19 at `opt-pallas`, while recording
+     the operands the opt-pallas plans hand to each kernel (those of q1,
+     q3, q6 and q12 feed phases 4 and 4b);
+  3. build every kernel library, every generated instance phase 5 reaches
+     among them (one nvcc per source, all at once);
   4. hold each kernel against its plain torch version on the card, at the
      recorded SF 1 shapes and at edge cases (1 and 37 rows, no valid row,
      overflow past the capacity, translate), and compaction under many
@@ -48,10 +51,19 @@ result line):
      and NaN and infinity in the table, in both of its ways to read the
      table, bit for bit — and time them, gather_join at 10,000 x 3 also
      with each way forced;
-  5. reset the launch counters, run the four queries at both presets on
-     the card through `CompiledQuery(...).run()`, compare every answer
-     with the CPU answer, and require every kernel to have launched under
-     opt-pallas (and none under opt); then time each query;
+  5. reset the launch counters and run the engine's ladder on the card
+     through `CompiledQuery(...).run()`: all 15 queries at `opt` and
+     `opt-pallas`, each against its CPU answer; at `naive`, `template`,
+     `tpch` and `strdict`, each against the CPU answer at `opt`; the row
+     layout of q1, q6, q12 and q19 at `naive`, `opt` and `opt-pallas`.
+     Require every engine kernel to have launched, none outside
+     opt-pallas, every opt-pallas run to launch exactly what the
+     reference's plan calls at SF 1 (`LAUNCHES_SF1`: q4 filter_agg 1, q7
+     compact 1, q9full filter_agg 1, ...; tests/test_torch_sf1_launches.py
+     counts them in the reference), and no overflow at opt or opt-pallas.
+     Time every query and rung (median and minimum of 5 runs after one
+     warm-up, `run()` and the device program alone), freeing each query
+     before the next;
   6. print one `{"kernels": [...]}` line, and last the result line.
 
 Every timed kernel shape is also profiled over 10 calls
@@ -70,7 +82,8 @@ query answers to the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
 
 `--rehearse` runs the same phases on the CPU (plain versions only, no
 build, no launch checks) at `--sf`, to test the script without a card;
-it prints no result line.
+it prints no result line.  On the card the script runs at SF 1, seed 0
+only, the size its launch table holds.
 """
 from __future__ import annotations
 
@@ -84,9 +97,38 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+# the queries whose kernel operands phase 4 holds against the plain
+# versions; phase 5 runs every query of the port
 SLICE = ["q1", "q3", "q6", "q12"]
 PRESETS = ["opt", "opt-pallas"]
-SORT_INSENSITIVE = {"q3"}
+# the rest of the ladder, each held against the CPU answer at opt
+LOWER_RUNGS = ["naive", "template", "tpch", "strdict"]
+# the row layout where the generated kernels read strided columns
+ROW_QUERIES = ["q1", "q6", "q12", "q19"]
+ROW_RUNGS = ["naive", "opt", "opt-pallas"]
+# kernel launches of each query at opt-pallas, TPC-H SF 1, seed 0: the
+# reference's kernel entry calls while its plan is traced, one launch a
+# call at these shapes; the row layout of ROW_QUERIES launches the same
+# (tests/test_torch_sf1_launches.py holds the reference to this table)
+LAUNCHES_SF1 = {
+    "q1": {"filter_agg": 1},
+    "q3": {"compact": 2, "compact_pred": 1},
+    "q4": {"filter_agg": 1},
+    "q5": {"compact": 1, "filter_agg": 1},
+    "q6": {"selective_filter_agg": 1},
+    "q7": {"compact": 1},
+    "q9": {"filter_agg": 1},
+    "q9full": {"filter_agg": 1},
+    "q10": {"compact": 1},
+    "q12": {"compact_pred": 1, "filter_agg": 1},
+    "q13": {"filter_agg": 1},
+    "q14": {"filter_agg": 1},
+    "q17": {"compact_pred": 1, "filter_agg": 1},
+    "q18": {},
+    "q19": {"filter_agg": 1},
+}
+RUNS = 5                         # timed runs of each query, after a warm-up
+SORT_INSENSITIVE = {"q3", "q10", "q18"}
 KERNEL_TOL = dict(rtol=1e-3, atol=1e-3)
 REPLACES = {
     "compact": "src/repro/kernels/compact.py:98",
@@ -179,12 +221,15 @@ def assert_same(a: dict, b: dict, sort_insensitive: bool, what: str):
 # phase 2: CPU answers + the operands each kernel sees
 # ---------------------------------------------------------------------------
 
-def cpu_answers(db):
-    """Run the slice on the CPU; record every kernel entry point's
-    arguments under opt-pallas as (query, entry, args, kwargs)."""
+def cpu_answers(db, queries):
+    """Run every query at opt and opt-pallas on the CPU, and the row
+    layout at opt-pallas for ROW_QUERIES; record every kernel entry
+    point's arguments under opt-pallas as (query, entry, args, kwargs),
+    the row layout's with the query named `<q>/row`."""
+    import dataclasses
+
     import repro_torch.kernels.ops as kops
     from repro_torch.core import CompiledQuery, preset
-    from repro_torch.relational.queries import QUERIES
 
     calls = []
     names = ["filter_agg_query", "compact_query", "compact_pred_query",
@@ -199,17 +244,25 @@ def cpu_answers(db):
         return g
 
     answers = {}
+    runs = [(q, p, "column") for q in queries for p in PRESETS] \
+        + [(q, "opt-pallas", "row") for q in ROW_QUERIES]
     for n in names:
         setattr(kops, n, recorder(n, saved[n]))
     try:
-        for q in SLICE:
-            for p in PRESETS:
-                current[0] = q if p == "opt-pallas" else None
-                t0 = time.perf_counter()
-                cq = CompiledQuery(QUERIES[q](), db, preset(p), device="cpu")
-                answers[q, p] = cq.run()
-                check(cq.n_overflows == 0, (q, p))
-                log(f"cpu {q} {p}: {time.perf_counter() - t0:.2f} s")
+        for q, p, layout in runs:
+            current[0] = None if p != "opt-pallas" else \
+                q if layout == "column" else f"{q}/row"
+            t0 = time.perf_counter()
+            cq = CompiledQuery(queries[q](), db, dataclasses.replace(
+                preset(p), layout=layout), device="cpu")
+            got = cq.run()
+            check(cq.n_overflows == 0, (q, p, layout))
+            if layout == "column":
+                answers[q, p] = got
+            else:
+                assert_same(got, answers[q, p], q in SORT_INSENSITIVE,
+                            f"cpu {q} {p} row")
+            log(f"cpu {q} {p} {layout}: {time.perf_counter() - t0:.2f} s")
     finally:
         for n in names:
             setattr(kops, n, saved[n])
@@ -984,6 +1037,83 @@ def library_phase(db, records, dev, subnormal, timed: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
+
+def main_path(db, queries, answers, counters, args) -> dict:
+    """Every query through `CompiledQuery(...).run()` on the card: at opt
+    and opt-pallas against its CPU answer at the same preset, at the lower
+    rungs against the CPU answer at opt, and the row layout of
+    ROW_QUERIES at ROW_RUNGS likewise.  Checks each run's launches (none
+    outside opt-pallas; at opt-pallas exactly LAUNCHES_SF1's) and times
+    it: median and minimum of RUNS runs after one warm-up, each `run()`
+    (the answer
+    decoded on the host) and the device program alone (`execute` and a
+    synchronisation).  Each query is freed before the next is built.
+    Returns the launches of the whole phase."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import CompiledQuery, preset
+
+    cuda = not args.rehearse
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    configs = [(q, p, "column") for p in PRESETS + LOWER_RUNGS
+               for q in queries] \
+        + [(q, p, "row") for p in ROW_RUNGS for q in ROW_QUERIES]
+    per_rung: dict = {}
+    for q, p, layout in configs:
+        t_cfg = time.perf_counter()
+        before = {name: d[k] for name, (d, k) in counters.items()}
+        cq = CompiledQuery(queries[q](), db,
+                           dataclasses.replace(preset(p), layout=layout),
+                           device="cpu" if args.rehearse else None)
+        got = cq.run()
+        want = answers[q, p if p in PRESETS else "opt"]
+        what = f"{q} {p}" + (" row" if layout == "row" else "")
+        assert_same(got, want, q in SORT_INSENSITIVE, what)
+        delta = {name: d[k] - before[name]
+                 for name, (d, k) in counters.items() if d[k] > before[name]}
+        if cuda and p != "opt-pallas":
+            check(not delta, f"{what}: a kernel launched ({delta})")
+        if cuda and p == "opt-pallas":
+            check(delta == LAUNCHES_SF1[q],
+                  f"{what}: launches {delta}, the reference's "
+                  f"{LAUNCHES_SF1[q]}")
+
+        def timed(fn):
+            fn()
+            out = []
+            for _ in range(RUNS):
+                sync()
+                t = time.perf_counter()
+                fn()
+                sync()
+                out.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        if cuda:            # a rehearsal checks answers only
+            run_ms = timed(cq.run)
+            inputs = cq.bind()
+            exec_ms = timed(lambda: cq.execute(inputs))
+            del inputs
+            log(f"query {what}: median {statistics.median(run_ms):.3f} ms "
+                f"(min {min(run_ms):.3f}) over {len(run_ms)} runs, device "
+                f"program median {statistics.median(exec_ms):.3f} ms "
+                f"(min {min(exec_ms):.3f}), overflows {cq.n_overflows}, "
+                f"launches {json.dumps(delta)}, inputs "
+                f"{cq.input_nbytes()} B, {time.perf_counter() - t_cfg:.1f} s")
+        check(cq.n_overflows == 0 or p not in PRESETS,
+              f"{what}: {cq.n_overflows} overflows")
+        key = p + (" row" if layout == "row" else "")
+        per_rung[key] = per_rung.get(key, 0.0) + time.perf_counter() - t_cfg
+        del cq
+    log("phase 5 seconds by rung: " + json.dumps(
+        {k: round(v, 1) for k, v in per_rung.items()}))
+    return {name: d[k] for name, (d, k) in counters.items()}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1000,8 +1130,11 @@ def main() -> int:
     if not args.rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if not args.rehearse and (args.sf, args.seed) != (1.0, 0):
+        print("chip_smoke: the card runs TPC-H SF 1, seed 0 (LAUNCHES_SF1)",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import CompiledQuery, preset
     from repro_torch.kernels import build
     from repro_torch.relational import Database
 
@@ -1024,20 +1157,24 @@ def main() -> int:
     db = Database.tpch(sf=args.sf, seed=args.seed)
     log(f"tpch sf={args.sf} seed={args.seed}: lineitem "
         f"{db.table('lineitem').nrows} rows, {time.perf_counter() - t0:.1f} s")
-    answers, records = cpu_answers(db)
+    answers, all_records = cpu_answers(db, QUERIES)
+    records = [r for r in all_records if r[0] in SLICE]
     seen = {(q, e) for q, e, _a, _k in records}
     for q, e in [("q1", "filter_agg_query"), ("q3", "compact_query"),
                  ("q6", "selective_agg_query"), ("q12", "compact_pred_query"),
                  ("q12", "filter_agg_query")]:
         check((q, e) in seen, f"{q} did not reach {e}")
     subnormal = subnormal_operands(db, dev)
+    log(f"phase 2 (data and CPU answers): {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3 ------------------------------------------------------------
     if not args.rehearse:
         t0 = time.perf_counter()
         sources = build.static_sources()
-        for _q, e, a, _k in records:
-            a = to(dev, a)
+        # every generated kernel phase 5 reaches, the row layout's strided
+        # instances too: sources from the CPU operands (a column's dtype
+        # and stride are all the source depends on)
+        for _q, e, a, _k in all_records:
             if e == "compact_pred_query":
                 sources.append(kc.pred_source(a[0], a[1], a[2]))
             elif e == "selective_agg_query":
@@ -1083,48 +1220,19 @@ def main() -> int:
     log(f"library surface: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5 ------------------------------------------------------------
+    t0 = time.perf_counter()
     counters = {"compact": (kc.launches, "compact"),
                 "compact_pred": (kc.launches, "compact_pred"),
                 "filter_agg": (kf.launches, "filter_agg"),
                 "selective_filter_agg": (kf.launches, "selective_filter_agg")}
     for d, k in counters.values():
         d[k] = 0
-    compiled = {}
-    for p in PRESETS:
-        for q in SLICE:
-            before = {name: d[k] for name, (d, k) in counters.items()}
-            cq = CompiledQuery(QUERIES[q](), db, preset(p),
-                               device=None if not args.rehearse else "cpu")
-            got = cq.run()
-            check(cq.n_overflows == 0, (q, p))
-            assert_same(got, answers[q, p], q in SORT_INSENSITIVE,
-                        f"{q} {p}")
-            compiled[q, p] = cq
-            delta = {name: d[k] - before[name]
-                     for name, (d, k) in counters.items() if d[k] > before[name]}
-            log(f"{q} {p}: matches the CPU answer; launches "
-                f"{json.dumps(delta)}")
-        if p == "opt" and not args.rehearse:
-            check(all(d[k] == 0 for d, k in counters.values()),
-                  "a kernel launched under opt")
-    launched = {name: d[k] for name, (d, k) in counters.items()}
+    launched = main_path(db, QUERIES, answers, counters, args)
     log(f"main path launches: {json.dumps(launched)}")
     if not args.rehearse:
         missing = [k for k, v in launched.items() if v == 0]
         check(not missing, f"never launched on the main path: {missing}")
-
-    for (q, p), cq in compiled.items():
-        sync = torch.cuda.synchronize if not args.rehearse else (lambda: None)
-        times = []
-        for _ in range(6):
-            sync()
-            t = time.perf_counter()
-            cq.run()
-            sync()
-            times.append((time.perf_counter() - t) * 1e3)
-        log(f"query {q} {p}: median {statistics.median(times[1:]):.3f} ms "
-            f"(min {min(times[1:]):.3f}) over {len(times) - 1} runs, "
-            f"inputs {cq.input_nbytes()} B")
+    log(f"phase 5 (main path): {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6 ------------------------------------------------------------
     rows = []

@@ -9,7 +9,8 @@ the reference package's backend:
   * `take` clamps out-of-range indices (an XLA gather clamps implicitly;
     torch indexing raises instead);
   * `segment_max`/`segment_min` leave an empty segment at `fill`;
-  * `compact` zero-fills the slots past the valid count.
+  * `compact` zero-fills the slots past the valid count;
+  * `searchsorted` is `jnp.searchsorted`'s left side.
 """
 from __future__ import annotations
 
@@ -68,6 +69,16 @@ class TorchBackend:
                 k = k.to(torch.uint8)
             order = order[torch.argsort(k[order], stable=True)]
         return order
+
+    @staticmethod
+    def searchsorted(sorted_seq, values):
+        """int32 insertion points of `values` into the ascending
+        `sorted_seq` (left side: the first position whose element is not
+        below the value).  Both sides are brought to one dtype first
+        (torch refuses a mixed pair on CUDA)."""
+        dt = torch.promote_types(sorted_seq.dtype, values.dtype)
+        return torch.searchsorted(sorted_seq.to(dt).contiguous(),
+                                  values.to(dt).contiguous(), out_int32=True)
 
     @staticmethod
     def compact(mask, capacity):

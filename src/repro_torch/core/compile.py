@@ -45,6 +45,17 @@ from repro_torch.core.passes.pipeline import Settings, optimize
 from repro_torch.relational.loader import Database
 
 _SAMPLE = 8
+# a result frame of more rows than this is cut to its valid rows on the
+# device before it is copied to the host; a smaller one is copied whole
+# and masked on the host.  A generic (sort-based) aggregation pads its
+# result to its input's row count (6 M rows for lineitem at TPC-H SF 1,
+# whose whole copy takes 73 to 173 ms on an H100, the selection under
+# 1); below a few thousand rows the selection's `nonzero` and a gather
+# a column cost 0.03 to 0.16 ms more than the whole copy.  The cut lies
+# between the largest frame measured where the whole copy won (5,000
+# rows) and the smallest where the selection won (150,000):
+# benchmarks/bench_torch_result_copy.py, PERF.md §5
+DEVICE_SELECT_ROWS = 1 << 16
 
 
 def resolve_device(device=None) -> torch.device:
@@ -211,11 +222,25 @@ class CompiledQuery:
                 # uncompacted
                 self.n_overflows += 1
                 return self._fallback_query().run(params)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        return _decode_frame(out, mask.cpu().numpy(), self.out_meta)
+        copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
+            else whole_to_host
+        return _decode_frame(*copy(out, mask), self.out_meta)
 
     def input_nbytes(self) -> int:
         return int(sum(v.nbytes for v in self.inputs.values()))
+
+
+def valid_rows_to_host(out, mask):
+    """The result's columns as numpy arrays of its valid rows, selected
+    on the device, and an all-true host mask over them."""
+    idx = mask.nonzero().squeeze(1)
+    cols = {k: v.index_select(0, idx).cpu().numpy() for k, v in out.items()}
+    return cols, np.ones(idx.shape[0], dtype=bool)
+
+
+def whole_to_host(out, mask):
+    """The result's columns and mask copied whole, as numpy arrays."""
+    return {k: v.cpu().numpy() for k, v in out.items()}, mask.cpu().numpy()
 
 
 def _decode_frame(out, mask, out_meta) -> dict[str, np.ndarray]:

@@ -20,6 +20,7 @@ work) or torch (the staged program, on CPU or CUDA tensors).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Union
 
 Expr = Union[
@@ -224,16 +225,36 @@ def eval_expr(e: Expr, env: EvalEnv):
     return v
 
 
-def _bytes_const(s: str, width: int, xp):
+def _bytes_const(s: str, width: int, like):
+    """The string's bytes, zero-padded to `width`, beside the char matrix
+    `like`: numpy for a numpy matrix, a tensor on its device for a torch
+    one (torch will not compare a CUDA tensor with a host array)."""
     import numpy as np
 
     if isinstance(s, Param):
         raise TypeError(f"string parameter {s.name!r} must be bound "
                         "(substitute_params) before execution")
+    if isinstance(like, np.ndarray):
+        return _padded_bytes(s, width)
+    return _device_bytes(s, width, like.device)
+
+
+def _padded_bytes(s: str, width: int):
+    import numpy as np
+
     b = np.zeros(width, dtype=np.uint8)
     raw = s.encode()[:width]
     b[: len(raw)] = np.frombuffer(raw, dtype=np.uint8)
     return b
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bytes(s: str, width: int, device):
+    """`_padded_bytes` on `device`, copied there once per process: every
+    later execution compares with the same tensor, which no op writes."""
+    import torch
+
+    return torch.from_numpy(_padded_bytes(s, width)).to(device)
 
 
 def _eval(e: Expr, env: EvalEnv):
@@ -276,21 +297,21 @@ def _eval(e: Expr, env: EvalEnv):
     # ---- char-matrix (unoptimized) string ops ------------------------------
     if isinstance(e, StrEq):
         chars = env.get_chars(e.col)
-        const = _bytes_const(e.value, chars.shape[1], xp)
+        const = _bytes_const(e.value, chars.shape[1], chars)
         eq = (chars == const[None, :]).all(axis=1)
         return ~eq if e.negate else eq
     if isinstance(e, StrIn):
         chars = env.get_chars(e.col)
         acc = None
         for v in e.values:
-            const = _bytes_const(v, chars.shape[1], xp)
+            const = _bytes_const(v, chars.shape[1], chars)
             eq = (chars == const[None, :]).all(axis=1)
             acc = eq if acc is None else (acc | eq)
         return acc
     if isinstance(e, StrStartsWith):
         chars = env.get_chars(e.col)
         k = len(e.prefix.encode())
-        const = _bytes_const(e.prefix, k, xp)
+        const = _bytes_const(e.prefix, k, chars)
         return (chars[:, :k] == const[None, :]).all(axis=1)
     if isinstance(e, StrContainsWord):
         # strstr: sliding-window byte comparison over the joined text —
@@ -298,7 +319,7 @@ def _eval(e: Expr, env: EvalEnv):
         chars = env.get_word_chars(e.col)
         pat = e.word.encode()
         k = len(pat)
-        const = _bytes_const(e.word, k, xp)
+        const = _bytes_const(e.word, k, chars)
         n, w = chars.shape
         hit = None
         for off in range(0, max(1, w - k + 1)):

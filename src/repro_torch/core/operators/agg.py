@@ -1,12 +1,12 @@
-"""Aggregation: the scalar and dense strategies of §3.2.2.
+"""Aggregation: the three lowered strategies of §3.2.2.
 
   scalar  — no group key: accumulators are scalar registers (optionally the
             fused filter+agg kernel);
   dense   — statically-known key domains: the hash map is a pre-allocated
-            array indexed by a mixed-radix composite of the key codes.
-
-The generic sort-based grouping (the un-specialized hash map) is not
-ported yet and raises.
+            array indexed by a mixed-radix composite of the key codes;
+  generic — the un-specialized hash map as a sort: rows ordered by their
+            group keys, one group per run of equal keys, the result
+            padded to the input's row count.
 """
 from __future__ import annotations
 
@@ -161,8 +161,11 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         from repro_torch.kernels import ops as kops
 
         names = [s_.name for s_ in a.aggs if s_.expr is not None]
+        # the kernel reads contiguous value columns: a bare column of a
+        # row-layout record matrix is copied out here, in the query's time
         sums_m, cnt = kops.filter_agg_query(
-            mask, gidx, [vals[nm].to(torch.float32) for nm in names], D)
+            mask, gidx,
+            [vals[nm].to(torch.float32).contiguous() for nm in names], D)
         return ({nm: sums_m[:, i] for i, nm in enumerate(names)}, cnt)
 
     if a.strategy == "scalar" or not a.group_by:
@@ -200,8 +203,7 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         return Frame(cols)
 
     if a.strategy != "dense":
-        raise NotImplementedError(
-            f"{a.strategy} aggregation is not ported to repro_torch yet")
+        return _generic(a, f, mask, vals, ctx, _finalize)
     D = _dense_domain(a)
     # mixed-radix composite index (strides baked at staging time)
     idx = None
@@ -251,3 +253,63 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         cols[spec.name] = Binding(
             _finalize(spec, sums, counts, mins, maxs), "num")
     return Frame(cols, present > 0)
+
+
+def _generic(a: ir.Agg, f: Frame, mask, vals: dict, ctx: StageCtx,
+             finalize) -> Frame:
+    """Sort-based grouping: a lexsort over the group keys (a char-matrix
+    key contributes one key per byte column) with the invalid rows last,
+    group ids from the cumulative sum of key changes, and segment sums,
+    counts, mins and maxes over them.  The frame keeps the input's row
+    count; its first `n_groups` rows are the groups in key order."""
+    be = ctx.backend
+    n = frame_nrows(f)
+    sort_keys: list = []   # major..minor
+    for g in a.group_by:
+        arr = f.cols[g].arr
+        if arr.ndim == 2:
+            sort_keys.extend(arr[:, k] for k in range(arr.shape[1]))
+        else:
+            sort_keys.append(arr)
+    order = be.lexsort(list(reversed(sort_keys)) + [~mask])
+    smask = be.take(mask, order)
+    new_group = None
+    for k in sort_keys:
+        sk = be.take(k, order)
+        d = torch.cat([torch.ones(1, dtype=torch.bool, device=sk.device),
+                       sk[1:] != sk[:-1]])
+        new_group = d if new_group is None else new_group | d
+    new_group = new_group & smask
+    # an invalid row is a group of its own past the valid ones
+    gid = torch.cumsum((new_group | ~smask).to(torch.int32), 0,
+                       dtype=torch.int32) - 1
+    n_groups = new_group.sum(dtype=torch.int32)
+    ar = ctx.arange(n)
+    starts = be.segment_min(ar, gid, n, 0)
+    first = be.take(order, starts)      # each group's first row
+    cols = {}
+    for g in list(a.group_by) + list(a.carry):
+        b = f.cols[g]
+        cols[g] = Binding(be.take(b.arr, first), b.kind, b.table, b.col)
+    sums, counts, mins, maxs = {}, {}, {}, {}
+    cnt = None
+    for spec in a.aggs:
+        sv = be.take(vals[spec.name], order) if spec.expr is not None \
+            else None
+        if spec.fn in ("sum", "avg"):
+            sums[spec.name] = be.segment_sum(torch.where(smask, sv, 0),
+                                             gid, n)
+        if spec.fn in ("count", "avg"):
+            if cnt is None:
+                cnt = be.segment_sum(smask.to(torch.int32), gid, n)
+            counts[spec.name] = cnt
+        if spec.fn == "min":
+            mins[spec.name] = be.segment_min(
+                torch.where(smask, sv, F32BIG), gid, n, F32BIG)
+        if spec.fn == "max":
+            maxs[spec.name] = be.segment_max(
+                torch.where(smask, sv, -F32BIG), gid, n, -F32BIG)
+    for spec in a.aggs:
+        cols[spec.name] = Binding(
+            finalize(spec, sums, counts, mins, maxs), "num")
+    return Frame(cols, ar < n_groups)

@@ -2,10 +2,16 @@
 
 Registers exactly the columns the optimized plan references as inputs of
 the staged program and applies the date-clustered permutation slice when
-DateIndex annotated one (§3.2.3).  Only the column layout is ported: the
-AoS record-matrix layout (`Settings.layout="row"`) raises.
+DateIndex annotated one (§3.2.3).  Under the AoS layout
+(`Settings.layout="row"`, §3.3) the numeric columns come from one record
+matrix per dtype group, and each column is a strided view into it: every
+read of a column is a read through its records, which is what the rung
+measures (eager torch has no optimization barrier to force the whole
+record, and the views are never made contiguous here).
 """
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.core import ir
 from repro_torch.core.operators.base import Binding, Frame, StageCtx
@@ -14,9 +20,6 @@ from repro_torch.relational.schema import ColKind
 
 def stage(scan: ir.Scan, ctx: StageCtx, defer: bool = False) -> Frame:
     db, be, s = ctx.db, ctx.backend, ctx.settings
-    if s.layout == "row":
-        raise NotImplementedError(
-            "layout='row' is not ported to repro_torch yet")
     if scan.shard is not None:
         raise NotImplementedError(
             "sharded scans are not ported to repro_torch yet")
@@ -34,10 +37,37 @@ def stage(scan: ir.Scan, ctx: StageCtx, defer: bool = False) -> Frame:
                           lambda: db.date_cluster(scan.table, ds.col)[0])
         perm = pfull[min(start, pfull.shape[0]):min(end, pfull.shape[0])]
 
+    rowmats: dict[str, tuple] = {}   # dtype group -> (record matrix, cols)
+    if s.layout == "row":
+        # one record matrix PER DTYPE GROUP: integers through a float32
+        # matrix would lose every value above 2^24
+        groups: dict[str, list[str]] = {"int": [], "float": []}
+        for c in cols:
+            k = t.schema.col(c).kind
+            if k in (ColKind.INT, ColKind.DATE):
+                groups["int"].append(c)
+            elif k == ColKind.FLOAT:
+                groups["float"].append(c)
+        for g, gcols in groups.items():
+            if not gcols:
+                continue
+            dt = np.int32 if g == "int" else np.float32
+            mat = reg(f"rowmat/{g}/" + ",".join(gcols),
+                      lambda gcols=gcols, dt=dt: np.stack(
+                          [t.data[c].astype(dt) for c in gcols], axis=1))
+            if perm is not None:
+                mat = be.take(mat, perm)
+            rowmats[g] = (mat, gcols)
+
     bindings: dict[str, Binding] = {}
     for c in cols:
         cdef = t.schema.col(c)
         if cdef.kind in (ColKind.INT, ColKind.FLOAT, ColKind.DATE):
+            g = "float" if cdef.kind == ColKind.FLOAT else "int"
+            if g in rowmats:
+                mat, gcols = rowmats[g]
+                bindings[c] = Binding(mat[:, gcols.index(c)], "num", t, c)
+                continue
             arr, kind = reg(f"col/{c}", lambda c=c: t.data[c]), "num"
         elif cdef.kind == ColKind.CAT:
             if s.string_dict:

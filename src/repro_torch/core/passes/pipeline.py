@@ -48,7 +48,6 @@ class Settings:
     # Pallas kernel execution mode: None = auto (interpret only when no
     # TPU/GPU backend is present), True/False = forced.
     pallas_interpret: "bool | None" = None
-    topk_limit: bool = True         # ORDER BY+LIMIT k -> top-k selection
     dense_agg_cap: int = 1 << 22    # max dense key domain (worst-case alloc)
     # --- selection-vector compaction (passes/compaction.py) -------------------
     compaction: bool = True         # compact masked frames at planned points
@@ -176,22 +175,22 @@ def preset(name: str) -> Settings:
         return Settings(engine="compiled", fusion=True, partitioning=False,
                         dense_agg=False, date_index=False, string_dict=False,
                         column_pruning=False, cse=False, hoist=False,
-                        topk_limit=False, compaction=False)
+                        compaction=False)
     if name == "template":       # HyPer-style: per-operator codegen scope
         return Settings(engine="compiled", fusion=False, partitioning=True,
                         dense_agg=False, date_index=False, string_dict=False,
                         column_pruning=False, cse=False, hoist=False,
-                        topk_limit=False, compaction=False)
+                        compaction=False)
     if name == "tpch":           # LegoBase(TPC-H/C): + partitioning
         return Settings(engine="compiled", fusion=True, partitioning=True,
                         dense_agg=False, date_index=False, string_dict=False,
                         column_pruning=False, cse=False, hoist=False,
-                        topk_limit=False, compaction=False)
+                        compaction=False)
     if name == "strdict":        # LegoBase(StrDict/C)
         return Settings(engine="compiled", fusion=True, partitioning=True,
                         dense_agg=False, date_index=False, string_dict=True,
                         column_pruning=False, cse=False, hoist=False,
-                        topk_limit=False, compaction=False)
+                        compaction=False)
     if name == "opt":            # LegoBase(Opt/C): everything
         return Settings()
     if name == "opt-pallas":     # beyond paper: + Pallas fused kernels

@@ -121,6 +121,15 @@ def check_cuda_1d(name: str, t, dtype=None) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D tensor")
 
 
+def check_cuda_column(name: str, t) -> None:
+    """Raise unless `t` is a 1-D CUDA view of positive stride: a column a
+    generated kernel reads with its stride baked in (`codegen`)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+    if t.ndim != 1 or (t.stride(0) < 1 and t.numel() > 1):
+        raise ValueError(f"{name} must be a 1-D view of positive stride")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero CUDA error code returned by a launcher."""
     if err != 0:

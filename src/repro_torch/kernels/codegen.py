@@ -24,6 +24,11 @@ truncates where Python's `//` floors (see `year_of_days`).
 Parameters become scalar members of the functor, filled from the
 launch's arguments, so rebinding a parameter never changes the source and
 never rebuilds the kernel.
+
+A column may be a strided view (under the row layout, a column of a
+record matrix): its element stride is baked into the load as a constant,
+so a contiguous column's source is `c<k>[i]` as ever and a strided one
+reads `c<k>[i * stride]` straight from the records.
 """
 from __future__ import annotations
 
@@ -85,11 +90,14 @@ class Emitter:
     """Emits C++ expressions over `x<k>` (column k at row i, loaded by
     `loads`) and `p<k>` parameter members.  `col_types` maps each column
     name (in argument order) to "int" | "float" | "bool"; `param_types`
-    does the same for the parameters."""
+    does the same for the parameters; `col_strides` gives a column's
+    element stride where it is not 1."""
 
-    def __init__(self, col_types: dict[str, str], param_types: dict[str, str]):
+    def __init__(self, col_types: dict[str, str], param_types: dict[str, str],
+                 col_strides: dict[str, int] | None = None):
         self.cols = list(col_types)
         self.col_types = dict(col_types)
+        self.col_strides = dict(col_strides or {})
         self.params = list(param_types)
         self.param_types = dict(param_types)
         self.used: set[int] = set()
@@ -104,10 +112,14 @@ class Emitter:
         each once, ahead of the expression: it then reads registers only,
         so no `&&`, `||` or `?:` puts a load behind a branch, and a kernel
         that evaluates several rows has all their loads in flight."""
-        out = [f"    const {self.col_types[c]} x{k} = c{k}[i];"
+        out = [f"    const {self.col_types[c]} x{k} = c{k}[{self._row(c)}];"
                for k, c in enumerate(self.cols) if k in self.used]
         self.used.clear()
         return out
+
+    def _row(self, name: str) -> str:
+        st = self.col_strides.get(name, 1)
+        return "i" if st == 1 else f"i * {int(st)}LL"
 
     def emit(self, e) -> tuple[str, str]:
         """(C++ expression, its type) for one Expr node."""
@@ -199,6 +211,26 @@ def column_types(cols: dict) -> dict[str, str]:
     return out
 
 
+def column_strides(cols: dict) -> dict[str, int]:
+    """Element stride of each column tensor (a 1-D view of positive
+    stride: a contiguous column, or a column of a record matrix)."""
+    out = {}
+    for name, t in cols.items():
+        st = t.stride(0) if t.ndim == 1 else 0
+        if st < 1 and t.numel() > 1:
+            raise ValueError(f"column {name!r} is not a 1-D view of "
+                             f"positive stride (stride {t.stride()})")
+        out[name] = max(st, 1)
+    return out
+
+
+def emitter(cols: dict, param_names: list[str], scalars: list) -> Emitter:
+    """The Emitter of a call's operands: column types and strides,
+    parameter kinds."""
+    return Emitter(column_types(cols), param_types(param_names, scalars),
+                   column_strides(cols))
+
+
 def param_types(param_names: list[str], scalars: list) -> dict[str, str]:
     return {p: _scalar_type(v) for p, v in zip(param_names, scalars)}
 
@@ -237,9 +269,11 @@ def expr_key(e) -> tuple:
 
 def operand_key(cols: dict, param_names: list[str], scalars: list) -> tuple:
     """What of a call's operands the generated source depends on: each
-    column's name and dtype in argument order, each parameter's name and
-    kind (never its value: rebinding a parameter keeps the library)."""
-    return (tuple((name, str(t.dtype)) for name, t in cols.items()),
+    column's name, dtype and stride in argument order, each parameter's
+    name and kind (never its value: rebinding a parameter keeps the
+    library)."""
+    return (tuple((name, str(t.dtype), t.stride(0) if t.ndim == 1 else 0)
+                  for name, t in cols.items()),
             tuple(param_names), tuple(_scalar_type(v) for v in scalars))
 
 

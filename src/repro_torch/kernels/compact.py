@@ -126,8 +126,7 @@ def _compact_cuda(mask, capacity: int, translate: bool):
 
 def pred_source(cols: dict, scalars: list, pred_fn) -> tuple[str, str]:
     """(library name, generated source) of the predicate's compaction."""
-    em = codegen.Emitter(codegen.column_types(cols),
-                         codegen.param_types(pred_fn.param_names, scalars))
+    em = codegen.emitter(cols, pred_fn.param_names, scalars)
     return "compact_pred", codegen.compact_pred_source(pred_fn.expr, em)
 
 
@@ -156,7 +155,7 @@ def _pred_lib(cols: dict, scalars: list, pred_fn):
 def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
                        translate: bool):
     for name, t in cols.items():
-        build.check_cuda_1d(name, t)
+        build.check_cuda_column(name, t)
     first = next(iter(cols.values()))
     n = first.shape[0]
     if any(t.shape[0] != n for t in cols.values()):

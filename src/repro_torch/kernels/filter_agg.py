@@ -238,8 +238,7 @@ def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
 def selective_source(cols: dict, scalars: list, pred_fn, value_fns: list,
                      gidx_fn, n_groups: int) -> tuple[str, str]:
     """(library name, generated source) of the selective pipeline."""
-    em = codegen.Emitter(codegen.column_types(cols),
-                         codegen.param_types(pred_fn.param_names, scalars))
+    em = codegen.emitter(cols, pred_fn.param_names, scalars)
     radix = gidx_fn.radix if gidx_fn is not None else []
     return "selective_agg", codegen.selective_agg_source(
         pred_fn.expr, [f.expr for f in value_fns], radix, n_groups, em)
@@ -276,7 +275,7 @@ def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
                     gidx_fn, n_groups: int, capacity: int, translate: bool):
     _check_compaction(capacity, translate)
     for name, t in cols.items():
-        build.check_cuda_1d(name, t)
+        build.check_cuda_column(name, t)
     first = next(iter(cols.values()))
     n = first.shape[0]
     if any(t.shape[0] != n for t in cols.values()):

@@ -500,9 +500,7 @@ def test_wide_aggregation_on_card_matches_cpu(cuda, sdb):
 
 
 @pytest.mark.parametrize("pname", ["opt", "opt-pallas"])
-@pytest.mark.parametrize("qname", ["q1", "q3", "q5", "q6", "q9", "q10",
-                                   "q12", "q13", "q14", "q17", "q18",
-                                   "q19"])
+@pytest.mark.parametrize("qname", sorted(QUERIES))
 def test_query_on_card_matches_cpu(cuda, sdb, qname, pname):
     """Every query the port runs, on the card against the port's CPU
     answer (sf 0.05)."""
@@ -511,3 +509,120 @@ def test_query_on_card_matches_cpu(cuda, sdb, qname, pname):
     cq = CompiledQuery(QUERIES[qname](), sdb, preset(pname))
     assert_same(cq.run(), want, qname in SORT_INSENSITIVE)
     assert cq.n_overflows == 0
+
+
+@pytest.mark.parametrize("pname", ["naive", "template", "tpch", "strdict"])
+@pytest.mark.parametrize("qname", sorted(QUERIES))
+def test_lower_rung_on_card_matches_cpu(cuda, sdb, qname, pname):
+    """The generic joins and the generic (sort-based) aggregation, on the
+    card against the port's CPU answer (sf 0.05)."""
+    want = CompiledQuery(QUERIES[qname](), sdb, preset(pname),
+                         device="cpu").run()
+    got = CompiledQuery(QUERIES[qname](), sdb, preset(pname)).run()
+    assert_same(got, want, qname in SORT_INSENSITIVE)
+
+
+def _strategies(cq):
+    from repro_torch.core import ir
+
+    return {n.strategy for n in ir.walk(cq.plan)
+            if isinstance(n, (ir.Join, ir.Agg))}
+
+
+def test_exists_flag_and_bucket_gather_on_card_match_cpu(cuda, sdb):
+    """q4's exists_flag semi join and q9full's bucket_gather at opt; q7's
+    generic join; q13's generic left join at naive."""
+    for q, pname, strategy in (("q4", "opt", "exists_flag"),
+                               ("q9full", "opt", "bucket_gather"),
+                               ("q7", "opt", "generic"),
+                               ("q13", "naive", "generic")):
+        want = CompiledQuery(QUERIES[q](), sdb, preset(pname),
+                             device="cpu").run()
+        cq = CompiledQuery(QUERIES[q](), sdb, preset(pname))
+        assert strategy in _strategies(cq), (q, pname)
+        assert_same(cq.run(), want, q in SORT_INSENSITIVE)
+
+
+def _row(pname):
+    import dataclasses
+
+    return dataclasses.replace(preset(pname), layout="row")
+
+
+@pytest.mark.parametrize("pname", ["naive", "opt", "opt-pallas"])
+@pytest.mark.parametrize("qname", ["q1", "q6", "q12", "q19"])
+def test_row_layout_on_card_matches_column_layout(cuda, sdb, qname, pname):
+    """The row layout reaches the generated kernels with strided columns
+    (compact_pred for q12, selective_filter_agg for q6 and q19) and, at
+    opt-pallas, answers bit for bit as the column layout does on the card
+    (every sum there is a kernel's fixed-order one); at naive and opt,
+    whose `index_add_` sums have no fixed order on the card, to the
+    repo's tolerance."""
+    before = dict(kc.launches), dict(kf.launches)
+    col = CompiledQuery(QUERIES[qname](), sdb, preset(pname)).run()
+    mid = dict(kc.launches), dict(kf.launches)
+    row = CompiledQuery(QUERIES[qname](), sdb, _row(pname)).run()
+    after = dict(kc.launches), dict(kf.launches)
+
+    def delta(a, b):
+        return {k: b[i][k] - a[i][k] for i in (0, 1) for k in b[i]
+                if b[i][k] != a[i][k]}
+
+    assert delta(before, mid) == delta(mid, after)
+    assert bool(delta(mid, after)) == (pname == "opt-pallas")
+    if pname != "opt-pallas":
+        assert_same(row, col, qname in SORT_INSENSITIVE)
+        return
+    assert sorted(col) == sorted(row)
+    for k in col:
+        np.testing.assert_array_equal(row[k], col[k], err_msg=k)
+
+
+def test_generated_kernels_read_strided_columns(cuda):
+    """compact_pred and selective_filter_agg over columns that are views
+    into record matrices give, bit for bit, what they give over the same
+    columns made contiguous."""
+    n = (1 << 20) + 37
+    flat = _cols(n, cuda)
+    recs = {"c0": torch.stack([flat["c0"], flat["c0"] + 1], 1),
+            "f": torch.stack([flat["f1"], flat["f0"], flat["f1"]], 1)}
+    strided = {"c0": recs["c0"][:, 0], "f0": recs["f"][:, 1],
+               "f1": recs["f"][:, 2]}
+    assert not any(t.is_contiguous() for t in strided.values())
+    pred = fu.TileFn(_pred(), ["qty"])
+    vals = [fu.TileFn(Col("f0"), ["qty"]), fu.TileFn(Col("f1"), ["qty"])]
+    gidx = fu.GroupIndex([("c0", 7, 1)], 7)
+    for cap in (1, n + 1):
+        got = kc.compact_pred(strided, [24.0], pred, cap, translate=True)
+        want = kc.compact_pred(flat, [24.0], pred, cap, translate=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    got = kf.selective_filter_agg(strided, [24.0], pred, vals, gidx, 7)
+    want = kf.selective_filter_agg(flat, [24.0], pred, vals, gidx, 7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("by_count", [False, True])
+def test_topk_ties_on_card_keep_the_lowest_rows(cuda, by_count):
+    """The top-k tie plans (tests/test_torch_fuzz.py) on the card: the
+    same nine rows as on the CPU; by status and priority O/2-HIGH in and
+    O/5-LOW out, by status and count descending O/5-LOW in and
+    O/3-MEDIUM out."""
+    from repro_torch.core import expr as E
+    from repro_torch.core import ir
+    from test_torch_fuzz import tie_plan
+
+    db = Database.tpch(sf=0.01, seed=0)
+    for pname in ("opt", "opt-pallas"):
+        want = CompiledQuery(tie_plan(ir, E, by_count), db, preset(pname),
+                             device="cpu").run()
+        got = CompiledQuery(tie_plan(ir, E, by_count), db,
+                            preset(pname)).run()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        rows = list(zip(got["o_orderstatus"], got["o_orderpriority"],
+                        got["a0"].tolist()))
+        kept, cut = (("O", "5-LOW", 836), ("O", "3-MEDIUM", 802)) \
+            if by_count else (("O", "2-HIGH", 868), ("O", "5-LOW", 836))
+        assert kept in rows and cut not in rows
