@@ -64,7 +64,29 @@ result line):
      Time every query and rung (median and minimum of 5 runs after one
      warm-up, `run()` and the device program alone), freeing each query
      before the next;
-  6. print one `{"kernels": [...]}` line, and last the result line.
+  7. reset the launch counters and drive the serving path on the card at
+     opt-pallas through its entry points (`PlanCache.execute`,
+     `execute_many`, `execute_tiered`, `QueryServer.serve_batch`,
+     `run_chaos`): (a) the six parameterized queries, default then
+     alternative bindings, each against a CPU plan cache's answer at
+     opt, one staging a shape, no library built by the rebind, the
+     launches `LAUNCHES_SF1_PARAM` requires, cold (staging, `compile()`
+     and first run) and warm times, and a specialized binding's own
+     build; (b) `execute_many` of 1, 4 and 16 bindings of q6 and q12
+     and the entry's own `run_many` of the same, each slot against
+     `run`, all three timed; (c) a hand-planted 64-row compaction point
+     that overflows: the twin's answer, the true count observed, one
+     re-plan that stages once and then no overflow; (d) a tiered cache:
+     request 1 from the oracle, then the promoted opt-pallas tier, equal
+     answers; (e) a query server over 48 mixed requests: all resolved,
+     its statistics balanced, one staging a shape; (f) the chaos
+     harness: every future resolved, balanced, retried faults served,
+     no drift from the port's Volcano; (g) warm state saved and loaded;
+     (h) the peak device memory of the phase, and that closing every
+     cache and server gives its memory back.  Require every engine
+     kernel to have launched;
+  6. print one `{"kernels": [...]}` line (`launches` from phase 5,
+     `serving_launches` from phase 7), and last the result line.
 
 Every timed kernel shape is also profiled over 10 calls
 (`torch.profiler`): `device_ms` (device time of its kernels and memsets
@@ -125,6 +147,20 @@ LAUNCHES_SF1 = {
     "q14": {"filter_agg": 1},
     "q17": {"compact_pred": 1, "filter_agg": 1},
     "q18": {},
+    "q19": {"filter_agg": 1},
+}
+# kernel launches of one execution of each parameterized plan
+# (`PARAM_QUERIES`) at opt-pallas, TPC-H SF 1, seed 0, its capacities
+# planned for the default bindings: the reference's kernel entry calls
+# while its plan is traced under the default and the alternative bindings
+# alike (one program serves both; tests/test_torch_sf1_launches.py holds
+# the reference to this table)
+LAUNCHES_SF1_PARAM = {
+    "q1": {"selective_filter_agg": 1},
+    "q3": {"compact": 2, "compact_pred": 1},
+    "q6": {"selective_filter_agg": 1},
+    "q12": {"compact_pred": 1, "filter_agg": 1},
+    "q14": {"filter_agg": 1},
     "q19": {"filter_agg": 1},
 }
 RUNS = 5                         # timed runs of each query, after a warm-up
@@ -1114,6 +1150,318 @@ def main_path(db, queries, answers, counters, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the serving path
+# ---------------------------------------------------------------------------
+
+def param_bindings(pq, alt, q) -> dict:
+    """A parameterized query's two bindings: its defaults (the literal
+    query's values) and the alternative overlay."""
+    return {"default": dict(pq[q][1]), "alt": dict(pq[q][1], **alt[q])}
+
+
+def param_answers(db):
+    """Every parameterized query under both bindings through a CPU plan
+    cache at opt: the serving phase's reference answers."""
+    from repro_torch.core import PlanCache, preset
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES)
+
+    cache = PlanCache(db, device="cpu")
+    out = {}
+    for q in sorted(PARAM_QUERIES):
+        for name, b in param_bindings(PARAM_QUERIES, PARAM_ALT_BINDINGS,
+                                      q).items():
+            out[q, name] = cache.execute(PARAM_QUERIES[q][0](),
+                                         preset("opt"), b)
+    cache.close()
+    return out
+
+
+def overflow_plan():
+    """count and sum over `l_quantity < 26` (about half of lineitem)
+    squeezed through a hand-planted 64-row compaction point."""
+    from repro_torch.core.expr import Cmp, col, lit
+    from repro_torch.core.ir import Agg, AggSpec, Compact, Scan, Select
+
+    sel = Select(Scan("lineitem"), Cmp("<", col("l_quantity"), lit(26.0)))
+    return Agg(Compact(sel, 64), [],
+               [AggSpec("s", "sum", col("l_extendedprice")),
+                AggSpec("c", "count")])
+
+
+def serving_path(db, answers, counters, args) -> None:
+    """The runtime and serving layer on the card at opt-pallas: (a) a plan
+    cache over the six parameterized queries, default then alternative
+    bindings, (b) execute_many, (c) a forced overflow and its feedback
+    re-plan, (d) the tiered cache, (e) the query server, (f) the chaos
+    harness, (g) warm state saved and loaded, (h) device memory.  Logs
+    a line of numbers a step."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import CompiledQuery, PlanCache, preset
+    from repro_torch.core import compile as compile_mod
+    from repro_torch.core.passes.compaction import observed_bucket
+    from repro_torch.kernels import build
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES)
+    from repro_torch.serve.chaos import run_chaos
+    from repro_torch.serve.query_server import QueryServer
+
+    cuda = not args.rehearse
+    device = "cpu" if args.rehearse else None
+    S = preset("opt-pallas")
+    shapes = sorted(PARAM_QUERIES)
+    binds = {q: param_bindings(PARAM_QUERIES, PARAM_ALT_BINDINGS, q)
+             for q in shapes}
+    plan = {q: PARAM_QUERIES[q][0] for q in shapes}
+    if cuda:
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    report: dict = {}
+
+    def launched(before):
+        return {n: d[k] - before[n] for n, (d, k) in counters.items()
+                if d[k] > before[n]}
+
+    def snapshot():
+        return {n: d[k] for n, (d, k) in counters.items()}
+
+    def ms_since(t):
+        return (time.perf_counter() - t) * 1e3
+
+    # -- (a) the plan cache: one staging per shape, no build on rebind ----
+    cache = PlanCache(db, device=device)
+    for q in shapes:
+        s0, libs0 = compile_mod.STAGINGS, len(build._LIBS)
+        t = time.perf_counter()
+        cq, _rt = cache.get(plan[q](), S, binds[q]["default"])
+        stage_ms = ms_since(t)
+        t = time.perf_counter()
+        cq.compile()
+        compile_ms = ms_since(t)
+        libs_built = len(build._LIBS) - libs0
+        before = snapshot()
+        t = time.perf_counter()
+        got = cache.execute(plan[q](), S, binds[q]["default"])
+        first_ms = ms_since(t)
+        delta = {"default": launched(before)}
+        assert_same(got, answers[q, "default"], q in SORT_INSENSITIVE,
+                    f"serve {q} default")
+        libs1 = len(build._LIBS)
+        before = snapshot()
+        t = time.perf_counter()
+        got = cache.execute(plan[q](), S, binds[q]["alt"])
+        alt_ms = ms_since(t)
+        delta["alt"] = launched(before)
+        assert_same(got, answers[q, "alt"], q in SORT_INSENSITIVE,
+                    f"serve {q} alt")
+        check(compile_mod.STAGINGS - s0 == 1,
+              f"{q}: {compile_mod.STAGINGS - s0} stagings for two bindings")
+        check(len(build._LIBS) == libs1, f"{q}: the rebind built a library")
+        check(cq.n_overflows == 0, f"{q}: {cq.n_overflows} overflows")
+        if cuda:
+            for name, d in delta.items():
+                check(d == LAUNCHES_SF1_PARAM[q],
+                      f"serve {q} {name}: launches {d}, the reference's "
+                      f"{LAUNCHES_SF1_PARAM[q]}")
+        del cq
+        cache.execute(plan[q](), S, binds[q]["default"])
+        warm = []
+        for _ in range(RUNS):
+            t = time.perf_counter()
+            cache.execute(plan[q](), S, binds[q]["default"])
+            warm.append(ms_since(t))
+        report[q] = {"stage_ms": stage_ms, "compile_ms": compile_ms,
+                     "libraries_built": libs_built, "first_run_ms": first_ms,
+                     "cold_ms": stage_ms + compile_ms + first_ms,
+                     "alt_ms": alt_ms,
+                     "warm_median_ms": statistics.median(warm),
+                     "warm_min_ms": min(warm), "launches": delta}
+        log(f"serve {q}: " + json.dumps(report[q]))
+    # a specialized binding is new source: it pays nvcc again
+    libs0 = len(build._LIBS)
+    t = time.perf_counter()
+    got = cache.execute(plan["q6"](), S, binds["q6"]["alt"],
+                        mode="specialize")
+    report["q6 specialize"] = {"cold_ms": ms_since(t),
+                               "libraries_built": len(build._LIBS) - libs0}
+    assert_same(got, answers["q6", "alt"], False, "serve q6 specialize")
+    if cuda:
+        check(report["q6 specialize"]["libraries_built"] == 1,
+              "a specialized binding of q6 built no library")
+    log("serve q6 specialize: " + json.dumps(report["q6 specialize"]))
+    log(f"plan cache: {cache.stats}")
+
+    # -- (b) execute_many and run_many against run --------------------------
+    # three ways to answer n bindings, each timed as the least of 3 passes:
+    # the cache's execute_many (keying every binding, then one run_many),
+    # the entry's own run_many (n staged walks, one read of the counts)
+    # and n run calls (a read of the counts each)
+    def least_ms(fn, reps=3):
+        best = None
+        for _ in range(reps):
+            t = time.perf_counter()
+            got = fn()
+            ms = ms_since(t)
+            best = ms if best is None else min(best, ms)
+        return best, got
+
+    for q in ("q6", "q12"):
+        cq, _rt = cache.get(plan[q](), S, binds[q]["default"])
+        rts = [{k: b[k] for k in cq.param_spec}
+               for b in (binds[q]["default"], binds[q]["alt"])]
+        for n in (1, 4, 16):
+            bl = [(binds[q]["default"], binds[q]["alt"])[i % 2]
+                  for i in range(n)]
+            rl = [rts[i % 2] for i in range(n)]
+            many_ms, many = least_ms(
+                lambda: cache.execute_many(plan[q](), S, bl))
+            rmany_ms, rmany = least_ms(lambda: cq.run_many(rl))
+            runs_ms, singles = least_ms(lambda: [cq.run(r) for r in rl])
+            for i, (g, r, w) in enumerate(zip(many, rmany, singles)):
+                assert_same(g, w, False, f"execute_many {q} {n}[{i}]")
+                assert_same(r, w, False, f"run_many {q} {n}[{i}]")
+                assert_same(g, answers[q, ("default", "alt")[i % 2]],
+                            q in SORT_INSENSITIVE,
+                            f"execute_many {q} {n}[{i}] against the CPU")
+            report[f"{q} execute_many {n}"] = {
+                "ms_per_binding": many_ms / n,
+                "run_many_ms_per_binding": rmany_ms / n,
+                "run_ms_per_binding": runs_ms / n}
+            log(f"execute_many {q} x{n}: {many_ms / n:.3f} ms a binding, "
+                f"run_many {rmany_ms / n:.3f}, {n} runs "
+                f"{runs_ms / n:.3f} ms a binding (least of 3)")
+        del cq
+
+    # -- (c) a forced overflow and the feedback re-plan ---------------------
+    s_over = dataclasses.replace(S, compact_replan_after=1)
+    want = CompiledQuery(overflow_plan(), db, preset("opt"),
+                         device="cpu").run()
+    ocache = PlanCache(db, device=device)
+    cq0, _ = ocache.get(overflow_plan(), s_over)
+    got = ocache.execute(overflow_plan(), s_over)
+    assert_same(got, want, False, "overflow: the twin's answer")
+    true = int(want["c"][0])
+    check(cq0.n_overflows == 1 and true > 64, "overflow: no overflow")
+    check(cq0.observed_max.get("h0") == true,
+          f"overflow: observed {cq0.observed_max}, true count {true}")
+    check(ocache.stats.replans == 1, f"overflow: {ocache.stats}")
+    del cq0
+    s0 = compile_mod.STAGINGS
+    got = ocache.execute(overflow_plan(), s_over)
+    cq1, _ = ocache.get(overflow_plan(), s_over)
+    check(compile_mod.STAGINGS - s0 == 1, "overflow: the re-plan staged "
+          f"{compile_mod.STAGINGS - s0} times")
+    check(cq1.n_overflows == 0 and cq1.point_caps["h0"]
+          == observed_bucket(true), f"overflow: after the re-plan "
+          f"{cq1.point_caps}, {cq1.n_overflows} overflows")
+    assert_same(got, want, False, "overflow: the re-planned answer")
+    report["overflow"] = {"true_count": true, "capacity": cq1.point_caps}
+    log(f"forced overflow: {json.dumps(report['overflow'])}, {ocache.stats}")
+    del cq1
+    ocache.close()
+
+    # -- (d) the tiered cache: oracle first, then the card ------------------
+    tcache = PlanCache(db, tiered=True, device=device)
+    for q in ("q6", "q12"):
+        b = binds[q]["default"]
+        t = time.perf_counter()
+        res1, tier1 = tcache.execute_tiered(plan[q](), S, b)
+        oracle_ms = ms_since(t)
+        check(tier1 == "oracle", f"tiered {q}: request 1 served by {tier1}")
+        t = time.perf_counter()
+        check(tcache.await_promotion(plan[q](), S, b, timeout=600),
+              f"tiered {q}: promotion failed")
+        wait_ms = ms_since(t)
+        t = time.perf_counter()
+        res2, tier2 = tcache.execute_tiered(plan[q](), S, b)
+        promoted_ms = ms_since(t)
+        check(tier2 == "opt-pallas", f"tiered {q}: then served by {tier2}")
+        assert_same(res1, res2, False, f"tiered {q}: oracle vs opt-pallas")
+        assert_same(res2, answers[q, "default"], False, f"tiered {q}")
+        report[f"{q} tiered"] = {"oracle_ms": oracle_ms,
+                                 "promotion_wait_ms": wait_ms,
+                                 "promoted_ms": promoted_ms}
+        log(f"tiered {q}: " + json.dumps(report[f"{q} tiered"]))
+    tcache.close()
+
+    # -- (e) the query server -----------------------------------------------
+    reqs = [(q, name) for _ in range(4) for q in shapes
+            for name in ("default", "alt")]
+    s0 = compile_mod.STAGINGS
+    srv = QueryServer(db, S, window_s=3600.0, device=device)
+    t = time.perf_counter()
+    results = srv.serve_batch([(plan[q](), binds[q][name])
+                               for q, name in reqs])
+    serve_ms = ms_since(t)
+    srv.close()
+    st = srv.stats
+    for (q, name), got in zip(reqs, results):
+        assert_same(got, answers[q, name], q in SORT_INSENSITIVE,
+                    f"server {q} {name}")
+    check(st.completed == len(reqs) and st.errors == 0
+          and st.outstanding() == 0, f"server: {st}")
+    check(compile_mod.STAGINGS - s0 == len(shapes),
+          f"server: {compile_mod.STAGINGS - s0} stagings for "
+          f"{len(shapes)} shapes")
+    report["server"] = {"requests": len(reqs), "ms": serve_ms,
+                        "batches": st.batches, "coalesced": st.coalesced,
+                        "p50_ms": st.latency.p50() * 1e3,
+                        "p99_ms": st.latency.p99() * 1e3}
+    log("server: " + json.dumps(report["server"]))
+    del srv, results
+
+    # -- (f) chaos -------------------------------------------------------------
+    t = time.perf_counter()
+    rep = run_chaos(db, S, seed=0, n_requests=48, device=device)
+    for k in ("all_resolved", "balanced", "retried_ok"):
+        check(rep[k], f"chaos: not {k}: {rep}")
+    check(rep["oracle_drift"] == 0, f"chaos: drift {rep['oracle_drift']}")
+    report["chaos"] = {"injected": rep["injected"],
+                       "outcomes": rep["outcomes"], "ms": ms_since(t)}
+    log("chaos: " + json.dumps(report["chaos"]))
+
+    # -- (g) warm state ------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="warm-state-")
+    try:
+        path = f"{tmp}/warm.json"
+        n = cache.save(path)
+        fresh = PlanCache(db, device=device)
+        check(n == len(shapes) + 1 and fresh.load(path) == n,
+              f"warm state: {n} records saved")
+        check(all(fresh.is_warm(plan[q](), S, binds[q]["default"])
+                  for q in shapes), "warm state: a shape is not warm")
+        for base, fb in cache._feedback.items():
+            got = fresh._feedback[base]
+            check((got.observed, got.overrides) == (fb.observed,
+                                                    fb.overrides),
+                  "warm state: a record changed on the way")
+        fresh.close()
+    finally:
+        shutil.rmtree(tmp)
+    cache.close()
+
+    # -- (h) device memory ---------------------------------------------------
+    if cuda:
+        import gc
+
+        gc.collect()
+        torch.cuda.synchronize()
+        report["memory"] = {
+            "before_bytes": mem_before,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "after_close_bytes": torch.cuda.memory_allocated()}
+        log("serving memory: " + json.dumps(report["memory"]))
+        check(report["memory"]["after_close_bytes"]
+              <= mem_before + (64 << 20),
+              "closing the caches and servers left device memory held")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1158,6 +1506,7 @@ def main() -> int:
     log(f"tpch sf={args.sf} seed={args.seed}: lineitem "
         f"{db.table('lineitem').nrows} rows, {time.perf_counter() - t0:.1f} s")
     answers, all_records = cpu_answers(db, QUERIES)
+    served = param_answers(db)
     records = [r for r in all_records if r[0] in SLICE]
     seen = {(q, e) for q, e, _a, _k in records}
     for q, e in [("q1", "filter_agg_query"), ("q3", "compact_query"),
@@ -1234,6 +1583,18 @@ def main() -> int:
         check(not missing, f"never launched on the main path: {missing}")
     log(f"phase 5 (main path): {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 7 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    for d, k in counters.values():
+        d[k] = 0
+    serving_path(db, served, counters, args)
+    serving_launched = {name: d[k] for name, (d, k) in counters.items()}
+    log(f"serving path launches: {json.dumps(serving_launched)}")
+    if not args.rehearse:
+        missing = [k for k, v in serving_launched.items() if v == 0]
+        check(not missing, f"never launched on the serving path: {missing}")
+    log(f"phase 7 (serving path): {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6 ------------------------------------------------------------
     rows = []
     for name in ENGINE_KERNELS + LIBRARY_KERNELS:
@@ -1243,6 +1604,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": launched[name] if name in launched
             else c["launches"],
+            "serving_launches": serving_launched.get(name),
             "max_abs_err": c["max_abs_err"], "ms": c.get("ms"),
             "device_ms": c.get("device_ms"),
             "kernels_per_call": c.get("kernels_per_call"),

@@ -24,13 +24,27 @@ mapping each compaction point's id to its TRUE valid count.  A count
 above the point's planned capacity means the static bucket dropped rows,
 so `run` discards the outputs and re-executes through the lazily built
 *uncompacted twin* of the same logical plan — compaction is a performance
-bet whose worst case is latency, never wrong results.
+bet whose worst case is latency, never wrong results.  The counts are
+also accumulated per query (`observed_max`, underuse streaks) and
+harvested by `PlanCache`'s feedback store, which re-plans capacities
+from measured headroom after repeated overflows and shrinks them after
+sustained underuse.
+
+Bind-many: `run_many(bindings_list)` enqueues the N staged walks one
+after the other on the device's current stream, reads the point counts
+of all N in one device-to-host copy, and decodes; only the slots whose
+capacity overflowed re-run, through the twin.  Unlike the reference,
+which runs N bindings as one vmapped XLA program padded to a power-of-two
+bucket, there is no trace to amortise in eager torch, so nothing is
+padded (`pads_batches = False`) and each binding is one staged walk;
+each slot's answer is `run(bindings_list[i])`'s.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -57,6 +71,12 @@ _SAMPLE = 8
 # benchmarks/bench_torch_result_copy.py, PERF.md §5
 DEVICE_SELECT_ROWS = 1 << 16
 
+# stagings in this process: one per CompiledQuery construction.  The
+# runtime layer's tests read it to show that re-binding parameters stages
+# nothing; a server stages on its pool threads, hence the lock.
+STAGINGS = 0
+_STAGINGS_LOCK = threading.Lock()
+
 
 def resolve_device(device=None) -> torch.device:
     """`None` means the CUDA card; there is no silent CPU path — a caller
@@ -77,14 +97,22 @@ class CompiledQuery:
     Compile-time params (string values, Limit.n) must have been
     substituted before construction — pass `bindings` to `optimize`."""
 
+    # tiering.Runnable surface: a batch is N staged walks, never padded
+    pads_batches = False
+
     def __init__(self, plan: ir.Plan, db: Database, settings: Settings,
                  params: Optional[dict] = None,
                  est_params: Optional[dict] = None,
                  observed: Optional[dict] = None,
                  device=None):
+        global STAGINGS
         self.device = resolve_device(device)
+        with _STAGINGS_LOCK:
+            STAGINGS += 1
         self.db = db
         self.settings = settings
+        # the tiered cache overwrites it for a lower rung ('interpret')
+        self.tier_name = "opt-pallas" if settings.use_pallas else "compiled"
         # compaction plants static-capacity points from cardinality
         # *estimates*; keep a pristine copy of the logical plan so an
         # estimate that undershoots at runtime can build the uncompacted
@@ -94,10 +122,12 @@ class CompiledQuery:
             if (settings.compaction and not settings.compact_measure_only) \
             or any(isinstance(n, ir.Compact) and n.capacity > 0
                    for n in ir.walk(plan)) else None
+        t0 = time.perf_counter()
         self.plan = optimize(plan, db, settings,
                              est_params=est_params if est_params is not None
                              else (params or {}),
                              observed=observed)
+        self.pass_time = time.perf_counter() - t0
         # hand-planted Compact nodes get stable `h<i>` ids; then the points
         # split into real compaction points (capacity > 0) and
         # measure-only probes (capacity 0 — the overflow twin's
@@ -110,11 +140,29 @@ class CompiledQuery:
                     h += 1
                 compacts.append(n)
         real = [n for n in compacts if n.capacity > 0]
+        self.compaction_points = len(real)
+        self.capacities = tuple(n.capacity for n in real)
         self.point_caps = {n.point_id: int(n.capacity) for n in real}
+        # translate points carry the key->slot contract whose overflow
+        # drops rows a probe then misses: PlanCache's shrink decay exempts
+        # them, so their capacities floor at the all-time measured max
+        self.translate_points = {n.point_id for n in real if n.translate}
+        self.measure_points = len(compacts) - len(real)
         self._pristine = pristine if real else None
         self._fallback: Optional["CompiledQuery"] = None
         self._fallback_lock = threading.Lock()
-        self.n_overflows = 0      # executions that fell back
+        self.n_overflows = 0      # executions (or batch slots) that fell back
+        self.n_executions = 0     # staged walks run by run() / run_many()
+        # feedback state, harvested by PlanCache: the all-time max true
+        # count per point, and the current run of consecutive executions
+        # with every point under a quarter of its capacity, with its
+        # window max
+        self._obs_lock = threading.Lock()
+        self.observed_max: dict[str, int] = {}
+        self.under_streak = 0
+        self.streak_max: dict[str, int] = {}
+        self._cache_key: Optional[tuple] = None   # set by PlanCache
+        self.compile_time: Optional[float] = None
 
         spec = plan_params(self.plan)
         structural = sorted(n for n, i in spec.items() if i.structural)
@@ -131,6 +179,7 @@ class CompiledQuery:
 
         # 1. collection walk (CPU, 8-row samples): registers inputs and
         #    output schema; every static decision is exercised here.
+        t0 = time.perf_counter()
         self.inputs: dict[str, np.ndarray] = {}
 
         def collect_input(key, make):
@@ -156,6 +205,21 @@ class CompiledQuery:
         self.resident = {k: torch.from_numpy(v).to(self.device)
                          for k, v in self.inputs.items()
                          if not k.startswith("param/")}
+        self.stage_time = time.perf_counter() - t0
+
+    def compile(self) -> float:
+        """Build every kernel library the staged walk reaches: one walk
+        under the construction-time bindings, then wait for the device.
+        A plan's first run at `opt-pallas` otherwise pays `nvcc` for each
+        generated predicate it has not met yet.  The walk is not an
+        execution: nothing is observed or counted.  Returns (and keeps
+        as `compile_time`) its seconds."""
+        t0 = time.perf_counter()
+        self.execute(self.bind())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.compile_time = time.perf_counter() - t0
+        return self.compile_time
 
     # -- parameter binding -----------------------------------------------------
     def bind(self, params: Optional[dict] = None) -> dict:
@@ -211,23 +275,144 @@ class CompiledQuery:
                 self._pristine = None   # handed over (passes mutated it)
             return self._fallback
 
-    def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
-        out, mask, counts = self.execute(self.bind(params))
-        if self.point_caps:
-            counts = {pid: int(c) for pid, c in counts.items()}
-            if any(c > self.point_caps[pid] for pid, c in counts.items()
-                   if pid in self.point_caps):
-                # a capacity bucket overflowed: the compacted frames
-                # dropped rows, so the outputs are unusable — re-execute
-                # uncompacted
-                self.n_overflows += 1
-                return self._fallback_query().run(params)
+    def _merge_twin_observations(self, twin: "CompiledQuery") -> None:
+        """Fold the twin's measured true counts into this query's
+        observation state, where PlanCache's feedback step harvests
+        them.  Max-merge: idempotent across repeated fallbacks."""
+        with twin._obs_lock:
+            obs = dict(twin.observed_max)
+        with self._obs_lock:
+            for pid, c in obs.items():
+                if c > self.observed_max.get(pid, -1):
+                    self.observed_max[pid] = c
+
+    def _observe(self, slot_counts: list[dict], n_overflows: int) -> None:
+        """Feedback accounting for a list of per-execution true-count
+        dicts, `n_overflows` of which overflowed: the execution and
+        overflow counters, the all-time max per point, plus the
+        consecutive-underuse streak and its window max (the shrink signal
+        decays: a historical spike must not pin capacity up).  Under the
+        lock: a server runs one query from several threads."""
+        with self._obs_lock:
+            self.n_executions += len(slot_counts)
+            self.n_overflows += n_overflows
+            for counts in slot_counts:
+                oflow = False
+                under = any(pid in self.point_caps for pid in counts)
+                for pid, c in counts.items():
+                    if c > self.observed_max.get(pid, -1):
+                        self.observed_max[pid] = c
+                    cap = self.point_caps.get(pid)
+                    if cap is None:     # measure-only probe: count only
+                        continue
+                    if c > cap:
+                        oflow = True
+                    if 4 * c >= cap:
+                        under = False
+                if oflow or not under:
+                    self.under_streak = 0
+                    self.streak_max = {}
+                else:
+                    self.under_streak += 1
+                    for pid, c in counts.items():
+                        if c > self.streak_max.get(pid, -1):
+                            self.streak_max[pid] = c
+
+    def _overflowed(self, counts: dict) -> bool:
+        return any(c > self.point_caps[pid] for pid, c in counts.items()
+                   if pid in self.point_caps)
+
+    def _counts_to_host(self, runs: list[dict]) -> list[dict]:
+        """Every run's point counts as Python ints, in ONE device-to-host
+        copy for all of them (a copy each would wait on the device once a
+        point).  A count can be a CPU scalar (a measure-only point over a
+        frame with no mask)."""
+        flat = [c for counts in runs for c in counts.values()]
+        if not flat:
+            return [{} for _ in runs]
+        vals = iter(torch.stack([
+            torch.as_tensor(c, device=self.device).reshape(()).to(torch.int64)
+            for c in flat]).cpu().tolist())
+        return [{pid: next(vals) for pid in counts} for counts in runs]
+
+    def _result(self, out, mask) -> dict[str, np.ndarray]:
         copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
             else whole_to_host
         return _decode_frame(*copy(out, mask), self.out_meta)
 
+    def _settle(self, bindings_list: list, runs: list,
+                counts: list[dict]) -> list[dict[str, np.ndarray]]:
+        """The results of `runs`, this query's staged walks under
+        `bindings_list`, whose point counts `counts` are on the host:
+        the counts are observed, every slot whose capacity bucket
+        overflowed re-runs uncompacted through the twin (its compacted
+        frames dropped rows; the twin's probes report every site's TRUE
+        count, folded back for the feedback store), and the rest are
+        decoded."""
+        bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
+        self._observe(counts, len(bad))
+        results = [None if i in bad else self._result(out, mask)
+                   for i, (out, mask, _c) in enumerate(runs)]
+        if bad:
+            twin = self._fallback_query()
+            redo = twin.run_many([bindings_list[i] for i in bad])
+            self._merge_twin_observations(twin)
+            for i, r in zip(bad, redo):
+                results[i] = r
+        return results
+
+    def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
+        return self.run_many([params])[0]
+
+    def run_many(self, bindings_list) -> list[dict[str, np.ndarray]]:
+        """N bindings: the N staged walks enqueued back to back, their
+        point counts read in one copy, then each result decoded.  Returns
+        one result per binding, in order, each equal to
+        `run(bindings_list[i])`; a None binding means the construction-
+        time bindings.  Only overflowing slots re-run, through the twin.
+        A plan with no runtime parameters runs once and returns
+        independent copies (a caller may mutate its result in place)."""
+        bindings_list = list(bindings_list)
+        inputs = [self.bind(b) for b in bindings_list]   # validates all
+        if not self.param_spec:
+            inputs = inputs[:1]
+        runs = [self.execute(i) for i in inputs]
+        del inputs
+        results = self._settle(bindings_list, runs,
+                               self._counts_to_host([c for *_f, c in runs]))
+        del runs
+        if results and len(results) < len(bindings_list):
+            results += [{k: np.copy(v) for k, v in results[0].items()}
+                        for _ in bindings_list[1:]]
+        return results
+
     def input_nbytes(self) -> int:
         return int(sum(v.nbytes for v in self.inputs.values()))
+
+
+class CompiledQueryBatch:
+    """Several plans run as one unit: every staged walk is enqueued back
+    to back, the point counts of all of them are read in one copy, and
+    each result is decoded.  `run()` returns the per-query results of
+    `CompiledQuery.run()`, in order.  (The reference stages the plans
+    into one XLA program, whose compiler can share their common loads;
+    eager torch has no such scope, so each query keeps its own resident
+    inputs.)"""
+
+    def __init__(self, plans, db: Database, settings: Settings,
+                 device=None):
+        self.queries = [CompiledQuery(p, db, settings, device=device)
+                        for p in plans]
+
+    def run(self) -> list[dict[str, np.ndarray]]:
+        runs = [q.execute(q.bind()) for q in self.queries]
+        counts = self.queries[0]._counts_to_host(
+            [c for *_f, c in runs]) if self.queries else []
+        return [q._settle([None], [r], [c])[0]
+                for q, r, c in zip(self.queries, runs, counts)]
+
+    def input_nbytes(self) -> int:
+        return sum(q.input_nbytes() for q in self.queries)
 
 
 def valid_rows_to_host(out, mask):

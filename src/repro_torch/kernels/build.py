@@ -30,8 +30,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# `_LOCK` guards the two tables; a build holds only its library's own
+# lock, so one thread's `nvcc` run never delays another's first load of a
+# different library
 _LOCK = threading.Lock()
 _LIBS: dict[Path, ctypes.CDLL] = {}
+_BUILDING: dict[Path, threading.Lock] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -101,14 +106,32 @@ def build_all(sources: list[tuple[str, str]]) -> list[Path]:
 
 
 def load(name: str, source: str) -> ctypes.CDLL:
-    """The loaded library for (name, source), built first if needed."""
+    """The loaded library for (name, source), built first if needed.
+    Threads loading one library wait for a single build; threads loading
+    different libraries build them at the same time."""
     lib_path = library_path(name, source)
     with _LOCK:
         lib = _LIBS.get(lib_path)
+        if lib is not None:
+            return lib
+        path_lock = _BUILDING.setdefault(lib_path, threading.Lock())
+    with path_lock:
+        with _LOCK:
+            lib = _LIBS.get(lib_path)
         if lib is None:
             build_all([(name, source)])
-            lib = _LIBS[lib_path] = ctypes.CDLL(str(lib_path))
+            lib = ctypes.CDLL(str(lib_path))
+            with _LOCK:
+                _LIBS[lib_path] = lib
         return lib
+
+
+def bump(counter: dict, key: str, n: int = 1) -> None:
+    """Add `n` to `counter[key]` under one lock.  `+=` on a dict entry is
+    a read and a write, so two threads counting at once (a server's pool
+    executing queries side by side) could lose one of the counts."""
+    with _COUNT_LOCK:
+        counter[key] += n
 
 
 def check_cuda_1d(name: str, t, dtype=None) -> None:

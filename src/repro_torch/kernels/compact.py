@@ -120,7 +120,7 @@ def _compact_cuda(mask, capacity: int, translate: bool):
     build.check_cuda_1d("mask", mask, torch.bool)
     _check_capacity(capacity)
     out = rank_mask_cuda(mask, capacity, translate)
-    launches["compact"] += 1
+    build.bump(launches, "compact")
     return out
 
 
@@ -170,7 +170,7 @@ def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
         (ctypes.c_longlong * max(len(ip), 1))(*ip),
         n, build.ptr(ws), ws.shape[0], capacity, int(translate),
         build.stream_ptr(first)), "compact_pred")
-    launches["compact_pred"] += 1
+    build.bump(launches, "compact_pred")
     return out
 
 

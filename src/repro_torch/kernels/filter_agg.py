@@ -229,7 +229,7 @@ def _filter_agg_cuda(mask, gidx, values: list, n_groups: int):
         build.check(lib.repro_filter_agg(
             build.ptr(mask), build.ptr(gidx), ptrs, len(chunk), n, n_groups,
             nb, build.ptr(ws), out, build.ptr(ticket), stream), "filter_agg")
-        launches["filter_agg"] += 1
+        build.bump(launches, "filter_agg")
         results.append(res)
     sums, counts, _total = _cat_sums(results)
     return sums, counts
@@ -304,10 +304,10 @@ def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
         results.append(res)
     res = _cat_sums(results)
     if not capacity:
-        launches["selective_filter_agg"] += len(chunks)
+        build.bump(launches, "selective_filter_agg", len(chunks))
         return res
     idx, _count, *slot = rank_mask_cuda(mask, capacity, translate)
-    launches["selective_filter_agg_capacity"] += len(chunks)
+    build.bump(launches, "selective_filter_agg_capacity", len(chunks))
     return res + (idx, *slot)
 
 

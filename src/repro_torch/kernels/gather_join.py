@@ -67,7 +67,7 @@ def _gather_join_cuda(fk, table):
         build.check(_lib().repro_gather_join(
             build.ptr(fk), build.ptr(table), n, k, c, build.ptr(out),
             build.stream_ptr(fk)), "gather_join")
-        launches["gather_join"] += 1
+        build.bump(launches, "gather_join")
     return out
 
 

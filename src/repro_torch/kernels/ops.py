@@ -28,11 +28,14 @@ of scalar and dense aggregation; `compact_query`, `compact_pred_query`
 and `selective_agg_query` those of `operators.compact` and the fused
 selective pipeline.  `calls` counts the calls of each engine entry point
 whichever version ran; the kernel modules' `launches` count CUDA
-launches only.
+launches only.  Both count under a lock (`build.bump`): a server's pool
+threads execute queries at the same time.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import build
 
 # by name from the modules: the package exports this module's functions
 # under the modules' own names (`compact`, `filter_agg`, `gather_join`)
@@ -112,7 +115,7 @@ def filter_agg_query(mask, gidx, value_cols, n_groups):
     in one kernel pass.  Returns (sums (G, A) float32, counts (G,) int32):
     the count is exact, where the reference's float32 ones-column count
     is exact only up to 2^24 rows per group."""
-    calls["filter_agg"] += 1
+    build.bump(calls, "filter_agg")
     return _filter_agg(mask, gidx.to(torch.int32),
                        [v.to(torch.float32) for v in value_cols], n_groups)
 
@@ -120,13 +123,13 @@ def filter_agg_query(mask, gidx, value_cols, n_groups):
 def compact_query(mask, capacity, *, translate=False):
     """Single-pass drop-in for `backend.compact`: (idx, count), plus the
     key→slot translation vector when `translate`."""
-    calls["compact"] += 1
+    build.bump(calls, "compact")
     return _compact(mask, int(capacity), translate=translate)
 
 
 def compact_pred_query(cols, scalars, pred_fn, capacity, *, translate=False):
     """Fused filter → compact: predicate evaluated in-kernel."""
-    calls["compact_pred"] += 1
+    build.bump(calls, "compact_pred")
     return _compact_pred(cols, scalars, pred_fn, int(capacity),
                          translate=translate)
 
@@ -136,6 +139,6 @@ def selective_agg_query(cols, scalars, pred_fn, value_fns, gidx_fn,
     """The q6/q19-class pipeline: in-kernel predicate + grouped
     aggregation.  Returns (sums (G, A) float32, counts (G,) int32,
     total_count int32), every count exact."""
-    calls["selective_agg"] += 1
+    build.bump(calls, "selective_agg")
     return _selective_filter_agg(cols, scalars, pred_fn, value_fns, gidx_fn,
                                  n_groups)

@@ -95,7 +95,7 @@ def _masked_topk_cuda(vals, mask, k: int):
     build.check(lib.repro_masked_topk(
         build.ptr(vals), build.ptr(mask), n, k, build.ptr(ws), words,
         build.stream_ptr(vals)), "masked_topk")
-    launches["masked_topk"] += 1
+    build.bump(launches, "masked_topk")
     return ws[:k].view(torch.float32), ws[k:2 * k]
 
 

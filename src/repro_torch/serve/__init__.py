@@ -1,0 +1,5 @@
+"""Serving over the port's plan cache: `query_server.QueryServer`
+(coalescing windows, in-flight compile dedup, admission, deadlines,
+retry, the degradation ladder, tiered serving), `admission` (its
+controller, typed errors and telemetry) and `chaos` (the seeded fault
+harness)."""

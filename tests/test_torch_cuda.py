@@ -626,3 +626,148 @@ def test_topk_ties_on_card_keep_the_lowest_rows(cuda, by_count):
         kept, cut = (("O", "5-LOW", 836), ("O", "3-MEDIUM", 802)) \
             if by_count else (("O", "2-HIGH", 868), ("O", "5-LOW", 836))
         assert kept in rows and cut not in rows
+
+
+# ---------------------------------------------------------------------------
+# the serving path on the card (sf 0.05)
+# ---------------------------------------------------------------------------
+
+def _param(qname):
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES)
+
+    build, defaults = PARAM_QUERIES[qname]
+    return build, dict(defaults), dict(defaults,
+                                       **PARAM_ALT_BINDINGS[qname])
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3", "q6", "q12", "q14", "q19"])
+def test_rebind_on_card_builds_no_library(cuda, sdb, qname):
+    """A second binding of a parameterized plan at opt-pallas launches
+    the kernels the first one built, with new scalars: no staging, no
+    library built; both answers are the CPU's."""
+    from repro_torch.core import PlanCache
+    from repro_torch.core import compile as compile_mod
+    from repro_torch.kernels import build as kbuild
+
+    build, d, alt = _param(qname)
+    cpu = PlanCache(sdb, device="cpu")
+    cache = PlanCache(sdb)
+    try:
+        got = cache.execute(build(), preset("opt-pallas"), d)
+        assert_same(got, cpu.execute(build(), preset("opt"), d), True)
+        stagings, libs = compile_mod.STAGINGS, len(kbuild._LIBS)
+        got = cache.execute(build(), preset("opt-pallas"), alt)
+        assert_same(got, cpu.execute(build(), preset("opt"), alt), True)
+        assert compile_mod.STAGINGS == stagings
+        assert len(kbuild._LIBS) == libs
+    finally:
+        cache.close()
+
+
+@pytest.mark.parametrize("qname", ["q3", "q6", "q12"])
+def test_execute_many_on_card_equals_run(cuda, sdb, qname):
+    from repro_torch.core import PlanCache
+
+    build, d, alt = _param(qname)
+    cache = PlanCache(sdb)
+    try:
+        bindings = [d, alt, alt, d, alt]
+        many = cache.execute_many(build(), preset("opt-pallas"), bindings)
+        cq, _ = cache.get(build(), preset("opt-pallas"), d)
+        for got, b in zip(many, bindings):
+            want = cq.run({k: b[k] for k in cq.param_spec})
+            if qname == "q3":
+                # q3's dense aggregation adds with atomics (`index_add_`),
+                # in no fixed order: the repo's rule, not bit for bit
+                assert_same(got, want, False)
+            else:
+                # q6 and q12 sum in the kernels' fixed order
+                assert got.keys() == want.keys()
+                for k in want:
+                    np.testing.assert_array_equal(got[k], want[k])
+    finally:
+        cache.close()
+
+
+def test_server_on_card_answers_as_the_cpu(cuda, sdb):
+    from repro_torch.relational.queries import PARAM_QUERIES
+    from repro_torch.serve.query_server import QueryServer
+
+    reqs = []
+    for q in sorted(PARAM_QUERIES):
+        build, d, alt = _param(q)
+        reqs += [(build(), d), (build(), alt)]
+    with QueryServer(sdb, preset("opt-pallas"), window_s=3600.0) as srv:
+        futs = [srv.submit(p, b) for p, b in reqs]
+        srv.flush()
+        got = [f.result(timeout=600) for f in futs]
+    with QueryServer(sdb, preset("opt"), window_s=3600.0,
+                     device="cpu") as srv:
+        futs = [srv.submit(p, b) for p, b in reqs]
+        srv.flush()
+        want = [f.result(timeout=600) for f in futs]
+    for g, w in zip(got, want):
+        assert_same(g, w, True)
+
+
+def test_eviction_releases_the_entry_device_memory(cuda, sdb):
+    """An entry's resident inputs go back to the allocator when the
+    cache evicts it (or closes), once the caller drops it too."""
+    import gc
+
+    from repro_torch.core import PlanCache
+
+    cache = PlanCache(sdb, max_entries=1)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cq, _ = cache.get(QUERIES["q1"](), preset("opt-pallas"))
+        resident = sum(t.numel() * t.element_size()
+                       for t in cq.resident.values())
+        assert resident > 1 << 20
+        assert torch.cuda.memory_allocated() >= base + resident
+        del cq
+        cq, _ = cache.get(QUERIES["q6"](), preset("opt-pallas"))  # evicts q1
+        kept = sum(t.numel() * t.element_size()
+                   for t in cq.resident.values())
+        del cq
+        assert cache.stats.evictions == 1
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() <= base + kept + (1 << 20)
+        cache.close()
+        gc.collect()
+        assert torch.cuda.memory_allocated() <= base + (1 << 20)
+    finally:
+        cache.close()
+
+
+def test_failed_promotion_on_card_raises(cuda, sdb):
+    """A tiered cache on the card whose promotion fails (here a compile
+    fault injected through the server's `compile_hook`) answers the
+    shape's later requests with the failure, never from the host
+    oracle."""
+    from repro_torch.core.plan_cache import PromotionFailed
+    from repro_torch.relational.queries import PARAM_QUERIES
+    from repro_torch.serve.query_server import QueryServer
+
+    build, d = PARAM_QUERIES["q6"]
+
+    def boom(key):
+        raise RuntimeError("injected compile fault")
+
+    with QueryServer(sdb, preset("opt-pallas"), tiered=True,
+                     window_s=0.001, compile_hook=boom) as srv:
+        first = srv.submit(build(), d)
+        try:
+            first.result(timeout=600)     # the oracle, or already the fault
+        except PromotionFailed:
+            pass
+        assert not srv.cache.await_promotion(build(), preset("opt-pallas"),
+                                             d, timeout=600)
+        with pytest.raises(PromotionFailed):
+            srv.submit(build(), d).result(timeout=600)
+        assert srv.cache.stats.promote_failures == 1
+        assert srv.stats.errors >= 1

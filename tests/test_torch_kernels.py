@@ -424,3 +424,88 @@ def test_generated_source_matches_torch_evaluator(tmp_path, pred):
         want = torch.as_tensor(fu.TileFn(e, pnames)(tcols, tsc))
         np.testing.assert_array_equal(
             v[:, k], want.to(torch.float32).expand(n).numpy())
+
+
+# ---------------------------------------------------------------------------
+# concurrency: a server's pool threads build and count at the same time
+# ---------------------------------------------------------------------------
+
+def test_build_load_builds_two_libraries_at_once(tmp_path, monkeypatch):
+    """Two threads loading two new libraries run their two `nvcc`s side
+    by side: the stub compiler waits until the other build has started,
+    so a lock held across a whole build fails this test."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    sync = tmp_path / "started"
+    sync.mkdir()
+    stub = tmp_path / "nvcc"
+    stub.write_text(f"""#!{sys.executable}
+import pathlib, sys, time
+args = sys.argv[1:]
+sync = pathlib.Path({str(sync)!r})
+(sync / pathlib.Path(args[-1]).name).touch()
+deadline = time.monotonic() + 20
+while len(list(sync.iterdir())) < 2:
+    if time.monotonic() > deadline:
+        sys.exit("the other build never started")
+    time.sleep(0.01)
+pathlib.Path(args[args.index("-o") + 1]).write_bytes(b"")
+""")
+    stub.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(stub))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_BUILDING", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    loaded, errors = {}, []
+
+    def load(name):
+        try:
+            loaded[name] = build.load(name, f"// {name}\n")
+        except BaseException as e:     # reported below, on the test thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(n,)) for n in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert loaded["a"] != loaded["b"]
+    assert sorted(p.name for p in sync.iterdir()) == sorted(
+        build.library_path(n, f"// {n}\n").with_suffix(".cu").name
+        for n in "ab")
+    # a second load of a built library builds nothing
+    assert build.load("a", "// a\n") == loaded["a"]
+    assert len(list(sync.iterdir())) == 2
+
+
+def test_engine_call_counts_are_exact_under_threads():
+    """8 threads x 1,000 calls of an engine entry point count 8,000: the
+    counters `chip_smoke.py` reads lose no increment under threads."""
+    import sys
+    import threading
+
+    mask = torch.tensor([True, False, True])
+    before = ops.calls["compact"]
+
+    def work():
+        for _ in range(1000):
+            ops.compact_query(mask, 4)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert ops.calls["compact"] - before == 8000

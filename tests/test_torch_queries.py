@@ -288,9 +288,16 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_default_device_is_cuda_and_never_falls_back(pdb, monkeypatch):
+    from repro_torch.core import PlanCache
+    from repro_torch.serve.query_server import QueryServer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         CompiledQuery(QUERIES["q6"](), pdb, preset("opt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlanCache(pdb)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryServer(pdb, preset("opt"))
 
 
 def _chip_smoke(*args, cwd=ROOT, script=ROOT / "chip_smoke.py"):

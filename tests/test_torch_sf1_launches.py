@@ -11,7 +11,11 @@ CPU, without running a query at SF 1:
     its staged program is traced (`jax.make_jaxpr`: abstract values, no
     execution), are `chip_smoke.LAUNCHES_SF1`, the launches the card run
     requires of the port, for the column layout of every query and the
-    row layout of `chip_smoke.ROW_QUERIES`.
+    row layout of `chip_smoke.ROW_QUERIES`;
+  * the same for the parameterized plans through the reference's
+    `PlanCache`, under the default and the alternative bindings: they
+    are `chip_smoke.LAUNCHES_SF1_PARAM`, which the card's serving phase
+    requires.
 """
 import dataclasses
 import importlib.util
@@ -22,10 +26,13 @@ import pytest
 
 import repro.kernels.ops as ref_kops
 from repro.core import CompiledQuery as RefCompiledQuery
+from repro.core import PlanCache as RefPlanCache
 from repro.core import ir as RIR
 from repro.core import preset as ref_preset
 from repro.core.passes.pipeline import optimize as ref_optimize
 from repro.relational import Database as RefDatabase
+from repro.relational.queries import PARAM_ALT_BINDINGS as REF_PARAM_ALT
+from repro.relational.queries import PARAM_QUERIES as REF_PARAM_QUERIES
 from repro.relational.queries import QUERIES as REF_QUERIES
 from repro_torch.core import ir as PIR
 from repro_torch.core import preset
@@ -69,7 +76,9 @@ def test_port_plans_the_reference_plan_at_sf1(ref_db, port_db, qname, pname):
     assert PIR.plan_repr(got) == RIR.plan_repr(want)
 
 
-def _traced_calls(plan, db, settings) -> dict:
+def _traced_calls(cq, runtime=None) -> dict:
+    """The reference's kernel entry calls while `cq`'s staged program is
+    traced under `runtime`'s bindings."""
     calls: dict = {}
     saved = {e: getattr(ref_kops, e) for e in ENTRY}
 
@@ -82,8 +91,7 @@ def _traced_calls(plan, db, settings) -> dict:
     for e, fn in saved.items():
         setattr(ref_kops, e, wrap(e, fn))
     try:
-        cq = RefCompiledQuery(plan, db, settings)
-        jax.make_jaxpr(cq.fn)(cq.inputs)
+        jax.make_jaxpr(cq.fn)(cq.bind(runtime))
     finally:
         for e, fn in saved.items():
             setattr(ref_kops, e, fn)
@@ -96,9 +104,30 @@ def _traced_calls(plan, db, settings) -> dict:
 def test_reference_calls_at_sf1_are_the_card_launch_table(ref_db, layout,
                                                           qname):
     settings = dataclasses.replace(ref_preset("opt-pallas"), layout=layout)
-    assert _traced_calls(REF_QUERIES[qname](), ref_db, settings) \
-        == CS.LAUNCHES_SF1[qname]
+    cq = RefCompiledQuery(REF_QUERIES[qname](), ref_db, settings)
+    assert _traced_calls(cq) == CS.LAUNCHES_SF1[qname]
 
 
 def test_launch_table_covers_every_query():
     assert sorted(CS.LAUNCHES_SF1) == sorted(QUERIES)
+
+
+@pytest.mark.parametrize("binding", ["default", "alt"])
+@pytest.mark.parametrize("qname", sorted(REF_PARAM_QUERIES))
+def test_reference_param_calls_at_sf1_are_the_card_launch_table(
+        ref_db, qname, binding):
+    """The serving path's plans: a cache whose first request for the
+    shape carries the default bindings (so its capacities are planned
+    for them, as `chip_smoke.py` phase 7 sends them), then one execution
+    under each binding."""
+    build, defaults = REF_PARAM_QUERIES[qname]
+    cache = RefPlanCache(ref_db)
+    cache.get(build(), ref_preset("opt-pallas"), defaults)
+    bindings = defaults if binding == "default" \
+        else dict(defaults, **REF_PARAM_ALT[qname])
+    cq, runtime = cache.get(build(), ref_preset("opt-pallas"), bindings)
+    assert _traced_calls(cq, runtime) == CS.LAUNCHES_SF1_PARAM[qname]
+
+
+def test_param_launch_table_covers_every_param_query():
+    assert sorted(CS.LAUNCHES_SF1_PARAM) == sorted(REF_PARAM_QUERIES)
