@@ -85,8 +85,28 @@ result line):
      (h) the peak device memory of the phase, and that closing every
      cache and server gives its memory back.  Require every engine
      kernel to have launched;
+  8. the sharded path: all 15 queries at opt and opt-pallas on a 2-shard
+     data mesh and at opt-pallas on a 4-shard one (`Settings.shards`;
+     the shards sit on as many CUDA devices when the machine has them,
+     else on virtual slots of cuda:0, and the phase prints which), each
+     run twice against phase 5's unsharded card answer, every shard's
+     output bit for bit the same, no overflow, the Exchange count of the
+     port's CPU plan, at opt-pallas each engine call a launch of its
+     kernel and none at opt; at opt-pallas, the largest call of each
+     (query, entry point) in a query's first run, on one shard's card
+     tensors, held against the plain version with phase 4's tolerances
+     (the per-shard shapes: padded blocks, the sharded scan's mask,
+     per-shard capacities); the median of 3 `run()`s beside phase 5's
+     unsharded median (a record only: one card cannot gain from shards);
+  9. the port's plan fuzzer (`repro_torch.core.analysis.fuzz.run_fuzz`)
+     on the card at sf 0.05: 24 seeded plans through every `optimize()`
+     rung (opt-shard over 4 virtual slots), `naive` and `opt` compiled
+     against the port's Volcano, the first 4 also at opt-pallas; no
+     failure;
   6. print one `{"kernels": [...]}` line (`launches` from phase 5,
-     `serving_launches` from phase 7), and last the result line.
+     `serving_launches` from phase 7, `sharded_launches` from phase 8's
+     opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
+     kernel checks), and last the result line.
 
 Every timed kernel shape is also profiled over 10 calls
 (`torch.profiler`): `device_ms` (device time of its kernels and memsets
@@ -257,6 +277,11 @@ def assert_same(a: dict, b: dict, sort_insensitive: bool, what: str):
 # phase 2: CPU answers + the operands each kernel sees
 # ---------------------------------------------------------------------------
 
+# the engine's kernel entry points in `repro_torch.kernels.ops`
+ENTRY_POINTS = ["filter_agg_query", "compact_query", "compact_pred_query",
+                "selective_agg_query"]
+
+
 def cpu_answers(db, queries):
     """Run every query at opt and opt-pallas on the CPU, and the row
     layout at opt-pallas for ROW_QUERIES; record every kernel entry
@@ -268,8 +293,7 @@ def cpu_answers(db, queries):
     from repro_torch.core import CompiledQuery, preset
 
     calls = []
-    names = ["filter_agg_query", "compact_query", "compact_pred_query",
-             "selective_agg_query"]
+    names = ENTRY_POINTS
     saved = {n: getattr(kops, n) for n in names}
     current = [None]
 
@@ -309,15 +333,17 @@ def cpu_answers(db, queries):
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def to(dev, x):
+def to(dev, x, copy: bool = False):
+    """`x` with every tensor in it on `dev` (copied even there when
+    `copy`)."""
     import torch
 
     if isinstance(x, torch.Tensor):
-        return x.to(dev)
+        return x.to(dev, copy=copy)
     if isinstance(x, dict):
-        return {k: to(dev, v) for k, v in x.items()}
+        return {k: to(dev, v, copy) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(to(dev, v) for v in x)
+        return type(x)(to(dev, v, copy) for v in x)
     return x
 
 
@@ -456,7 +482,9 @@ def kernel_checks(records, dev, timed: bool):
                   f"filter_agg {q}: two calls differ")
             log(f"filter_agg {q} (G={G}, A={A}, {mask.shape[0]} rows): "
                 "two calls bit-identical")
-            vm = torch.where(mask[:, None], torch.stack(vals, 1), 0.0)
+            # a count-only call (A = 0) has no index_add_ counterpart
+            vm = torch.where(mask[:, None], torch.stack(vals, 1), 0.0) \
+                if A else None
             lib_out = torch.zeros((G, A), device=mask.device)
             note("filter_agg", err,
                  nbytes(mask, gidx, *vals) + 4 * G * (A + 1),
@@ -464,7 +492,8 @@ def kernel_checks(records, dev, timed: bool):
                      "ms": lambda: kf.filter_agg(mask, gidx, vals, G),
                      "plain_ms": lambda: kf.filter_agg_plain(mask, gidx,
                                                              vals, G),
-                     "library_ms": lambda: lib_out.index_add_(0, gidx, vm)})
+                     "library_ms": (lambda: lib_out.index_add_(0, gidx, vm))
+                     if A else None})
         elif entry == "compact_query":
             mask, cap = a
             tr = k.get("translate", False)
@@ -1076,7 +1105,7 @@ def library_phase(db, records, dev, subnormal, timed: bool):
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(db, queries, answers, counters, args) -> dict:
+def main_path(db, queries, answers, counters, args):
     """Every query through `CompiledQuery(...).run()` on the card: at opt
     and opt-pallas against its CPU answer at the same preset, at the lower
     rungs against the CPU answer at opt, and the row layout of
@@ -1086,7 +1115,9 @@ def main_path(db, queries, answers, counters, args) -> dict:
     (the answer
     decoded on the host) and the device program alone (`execute` and a
     synchronisation).  Each query is freed before the next is built.
-    Returns the launches of the whole phase."""
+    Returns the launches of the whole phase, the card's answers at
+    PRESETS (column layout) and their median `run()` ms by (query,
+    preset)."""
     import dataclasses
 
     import torch
@@ -1098,6 +1129,8 @@ def main_path(db, queries, answers, counters, args) -> dict:
                for q in queries] \
         + [(q, p, "row") for p in ROW_RUNGS for q in ROW_QUERIES]
     per_rung: dict = {}
+    card: dict = {}
+    medians: dict = {}
     for q, p, layout in configs:
         t_cfg = time.perf_counter()
         before = {name: d[k] for name, (d, k) in counters.items()}
@@ -1108,6 +1141,8 @@ def main_path(db, queries, answers, counters, args) -> dict:
         want = answers[q, p if p in PRESETS else "opt"]
         what = f"{q} {p}" + (" row" if layout == "row" else "")
         assert_same(got, want, q in SORT_INSENSITIVE, what)
+        if p in PRESETS and layout == "column":
+            card[q, p] = got
         delta = {name: d[k] - before[name]
                  for name, (d, k) in counters.items() if d[k] > before[name]}
         if cuda and p != "opt-pallas":
@@ -1130,6 +1165,7 @@ def main_path(db, queries, answers, counters, args) -> dict:
 
         if cuda:            # a rehearsal checks answers only
             run_ms = timed(cq.run)
+            medians[q, p, layout] = statistics.median(run_ms)
             inputs = cq.bind()
             exec_ms = timed(lambda: cq.execute(inputs))
             del inputs
@@ -1146,7 +1182,9 @@ def main_path(db, queries, answers, counters, args) -> dict:
         del cq
     log("phase 5 seconds by rung: " + json.dumps(
         {k: round(v, 1) for k, v in per_rung.items()}))
-    return {name: d[k] for name, (d, k) in counters.items()}
+    return ({name: d[k] for name, (d, k) in counters.items()}, card,
+            {(q, p): ms for (q, p, layout), ms in medians.items()
+             if layout == "column"})
 
 
 # ---------------------------------------------------------------------------
@@ -1462,6 +1500,255 @@ def serving_path(db, answers, counters, args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the sharded path
+# ---------------------------------------------------------------------------
+
+# (preset, shards) of the sharded runs
+SHARDED_CONFIGS = [("opt", 2), ("opt-pallas", 2), ("opt-pallas", 4)]
+SHARDED_RUNS = 3                 # timed runs of each sharded query
+# each kernel module's launch counter against its engine entry point's
+# count in `ops.calls`
+CALL_OF = {"compact": "compact", "compact_pred": "compact_pred",
+           "filter_agg": "filter_agg",
+           "selective_filter_agg": "selective_agg"}
+
+
+def place_shards(n: int, cuda: bool) -> str:
+    """Make n mesh slots visible: n CUDA devices when the machine has
+    them, else n virtual slots on cuda:0 (on the CPU in a rehearsal).
+    Returns which."""
+    import torch
+    from repro_torch.core import mesh
+
+    if not cuda:
+        mesh.virtual_devices("cpu", n)
+        return f"{n} virtual slots on the cpu"
+    have = torch.cuda.device_count()
+    if have >= n:
+        mesh.virtual_devices("cuda:0", 1)
+        return f"the first {n} of {have} CUDA devices"
+    mesh.virtual_devices("cuda:0", n)
+    return f"{n} virtual slots on cuda:0 ({have} CUDA device(s) visible)"
+
+
+def cpu_exchanges(db, queries) -> dict:
+    """The Exchange count of every query's plan at SHARDED_CONFIGS: the
+    port's `optimize()` planning for the CPU over as many virtual
+    slots."""
+    import dataclasses
+
+    from repro_torch.core import ir, mesh, optimize, preset
+
+    out = {}
+    try:
+        for p, n in SHARDED_CONFIGS:
+            mesh.virtual_devices("cpu", n)
+            for q in queries:
+                plan = optimize(queries[q](), db, dataclasses.replace(
+                    preset(p), shards=n), device="cpu")
+                out[q, p, n] = sum(isinstance(x, ir.Exchange)
+                                   for x in ir.walk(plan))
+    finally:
+        mesh.virtual_devices("cpu", 1)
+    return out
+
+
+def shards_identical(shards, what: str) -> None:
+    """Every shard's columns, mask and counts bit for bit shard 0's."""
+    import torch
+
+    out0, mask0, counts0 = shards[0]
+    for rank, (out, mask, counts) in enumerate(shards[1:], 1):
+        check(set(out) == set(out0), f"{what}: shard {rank}'s columns")
+        for k, v in out0.items():
+            check(torch.equal(out[k].to(v.device), v),
+                  f"{what}: shard {rank} differs in {k}")
+        check(torch.equal(mask.to(mask0.device), mask0),
+              f"{what}: shard {rank}'s mask differs")
+        for pid, c in counts0.items():
+            check(pid in counts, f"{what}: shard {rank} lacks point {pid}")
+
+
+def entry_rows(a) -> int:
+    """The rows of an entry point's call (its first argument's)."""
+    first = a[0]
+    return (first if not isinstance(first, dict)
+            else next(iter(first.values()))).shape[0]
+
+
+def sharded_path(db, queries, card, unsharded_ms, counters, args):
+    """Every query at SHARDED_CONFIGS through `CompiledQuery(...).run()`
+    on a data mesh of the card: n_shards as asked, the Exchange count of
+    the CPU's plan, two runs each equal to phase 5's unsharded card
+    answer, every shard's output bit for bit the same, no overflow, at
+    opt-pallas every engine call a launch of its kernel (none at opt),
+    and the median of SHARDED_RUNS `run()`s beside phase 5's unsharded
+    median.  At opt-pallas the first run of each query records, from
+    every shard's thread, the largest call of each entry point with a
+    copy of its card tensors; after the query's launches are read each
+    is held against its plain version (`kernel_checks`, untimed).
+    Returns the launches of the phase's opt-pallas runs and the checks
+    per kernel (max error, the largest per-shard rows)."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    import repro_torch.kernels.ops as kops
+    from repro_torch.core import CompiledQuery, ir, mesh, preset
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    exchanges = cpu_exchanges(db, queries)
+    launched = {name: 0 for name in counters}
+    called = {name: 0 for name in counters}
+    checks: dict = {}
+    largest: dict = {}          # entry -> (rows, args, kwargs)
+    recording = [False]
+    lock = threading.Lock()
+    saved = {e: getattr(kops, e) for e in ENTRY_POINTS}
+
+    def recorder(entry, fn):
+        def g(*a, **k):
+            if recording[0]:
+                rows = entry_rows(a)
+                with lock:
+                    if rows > largest.get(entry, (-1,))[0]:
+                        largest[entry] = (rows, to(dev, a, copy=True),
+                                          to(dev, k, copy=True))
+            return fn(*a, **k)
+        return g
+
+    for e in ENTRY_POINTS:
+        setattr(kops, e, recorder(e, saved[e]))
+    try:
+        for p, n in SHARDED_CONFIGS:
+            log(f"phase 8 {p} x{n}: " + place_shards(n, cuda))
+            for q in queries:
+                t_cfg = time.perf_counter()
+                what = f"{q} {p} x{n}"
+                before = {name: d[k] for name, (d, k) in counters.items()}
+                calls0 = dict(kops.calls)
+                cq = CompiledQuery(queries[q](), db, dataclasses.replace(
+                    preset(p), shards=n),
+                    device="cpu" if args.rehearse else None)
+                check(cq.n_shards == n, f"{what}: {cq.n_shards} shards")
+                n_ex = sum(isinstance(x, ir.Exchange)
+                           for x in ir.walk(cq.plan))
+                check(n_ex == exchanges[q, p, n],
+                      f"{what}: {n_ex} exchanges, the CPU plan's "
+                      f"{exchanges[q, p, n]}")
+                for i in range(2):  # the second merges the shard counts
+                    recording[0] = i == 0 and p == "opt-pallas"
+                    assert_same(cq.run(), card[q, p], q in SORT_INSENSITIVE,
+                                what)
+                    recording[0] = False
+                shards_identical(cq.execute_shards(cq.bind()), what)
+                check(cq.n_overflows == 0,
+                      f"{what}: {cq.n_overflows} overflows")
+                ms = []
+                for _ in range(SHARDED_RUNS):
+                    sync()
+                    t = time.perf_counter()
+                    cq.run()
+                    sync()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                delta = {name: d[k] - before[name]
+                         for name, (d, k) in counters.items()}
+                calls = {name: kops.calls[e] - calls0[e]
+                         for name, e in CALL_OF.items()}
+                if cuda and p == "opt-pallas":
+                    check(delta == calls, f"{what}: launches {delta} for "
+                          f"the engine's calls {calls}")
+                elif cuda:
+                    check(not any(delta.values()),
+                          f"{what}: a kernel launched ({delta})")
+                if p == "opt-pallas":
+                    for name, v in delta.items():
+                        launched[name] += v
+                        called[name] += calls[name]
+                    # after the launches are read: these calls launch too
+                    got = kernel_checks(
+                        [(what, e, a, k) for e, (_r, a, k) in largest.items()],
+                        dev, timed=False)
+                    largest.clear()
+                    for name, c in got.items():
+                        e = checks.setdefault(name, {"max_abs_err": 0.0,
+                                                     "rows": 0})
+                        e["max_abs_err"] = max(e["max_abs_err"],
+                                               c["max_abs_err"])
+                        e["rows"] = max(e["rows"], c["n"])
+                obs = {pid: v.tolist() for pid, v in cq.observed_shard.items()}
+                flat = unsharded_ms.get((q, p))
+                log(f"sharded {what}: median {statistics.median(ms):.3f} ms "
+                    f"(min {min(ms):.3f}) over {len(ms)} runs, unsharded "
+                    + (f"{flat:.3f} ms" if flat is not None else "not timed")
+                    + f" (phase 5), exchanges {n_ex}, per-shard counts "
+                    f"{json.dumps(obs)}, launches "
+                    f"{json.dumps({k: v for k, v in delta.items() if v})}, "
+                    f"{time.perf_counter() - t_cfg:.1f} s")
+                del cq
+    finally:
+        for e in ENTRY_POINTS:
+            setattr(kops, e, saved[e])
+        mesh.virtual_devices("cpu" if args.rehearse else "cuda:0", 1)
+    unchecked = [k for k, v in called.items() if v and k not in checks]
+    check(not unchecked, f"phase 8: no per-shard check of {unchecked}")
+    for name, c in checks.items():
+        log(f"phase 8 {name}: per-shard calls up to {c['rows']} rows, max "
+            f"err {c['max_abs_err']} against the plain version")
+    return launched, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the port's plan fuzzer on the card
+# ---------------------------------------------------------------------------
+
+FUZZ_SF = 0.05
+FUZZ_PLANS = 24                  # naive and opt compiled for each
+FUZZ_KERNEL_PLANS = 4            # opt-pallas compiled: an nvcc a predicate
+FUZZ_SHARDS = 4                  # virtual slots the opt-shard rung plans over
+
+
+def fuzz_phase(args) -> None:
+    """`run_fuzz` on the card: FUZZ_PLANS seeded plans through every
+    `optimize()` rung (the ladder, opt-pallas and opt-shard over
+    FUZZ_SHARDS slots) with `naive` and `opt` compiled against the port's
+    Volcano, and the first FUZZ_KERNEL_PLANS of them compiled at
+    opt-pallas.  Any failure fails the run."""
+    from repro_torch.core import mesh
+    from repro_torch.core.analysis.fuzz import run_fuzz
+    from repro_torch.relational import Database
+
+    cuda = not args.rehearse
+    device = "cuda" if cuda else "cpu"
+    t0 = time.perf_counter()
+    db = Database.tpch(sf=FUZZ_SF, seed=0)
+    try:
+        log("phase 9 opt-shard: " + place_shards(FUZZ_SHARDS, cuda))
+        rep = run_fuzz(db, FUZZ_PLANS, compile_presets=["naive", "opt"],
+                       device=device)
+        t1 = time.perf_counter()
+        kern = run_fuzz(db, FUZZ_KERNEL_PLANS, presets=[],
+                        compile_presets=["opt-pallas"], device=device)
+    finally:
+        mesh.virtual_devices("cuda:0" if cuda else "cpu", 1)
+    failures = rep.failures + kern.failures
+    log(f"fuzz sf={FUZZ_SF}: {rep.n_plans} plans, {rep.n_optimized} "
+        f"optimizes, {rep.n_compiled + kern.n_compiled} compiles "
+        f"({kern.n_compiled} at opt-pallas), {len(failures)} failures; "
+        f"naive/opt {t1 - t0:.1f} s, opt-pallas "
+        f"{time.perf_counter() - t1:.1f} s")
+    for f in failures[:5]:
+        log(f"  fuzz failure: seed={f['seed']} preset={f['preset']} "
+            f"[{f['stage']}] {f['error']}")
+    check(not failures, f"the fuzzer found {len(failures)} failures")
+    check(kern.n_compiled == FUZZ_KERNEL_PLANS,
+          f"{kern.n_compiled} opt-pallas compiles")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1576,7 +1863,8 @@ def main() -> int:
                 "selective_filter_agg": (kf.launches, "selective_filter_agg")}
     for d, k in counters.values():
         d[k] = 0
-    launched = main_path(db, QUERIES, answers, counters, args)
+    launched, card, unsharded_ms = main_path(db, QUERIES, answers, counters,
+                                             args)
     log(f"main path launches: {json.dumps(launched)}")
     if not args.rehearse:
         missing = [k for k, v in launched.items() if v == 0]
@@ -1595,6 +1883,25 @@ def main() -> int:
         check(not missing, f"never launched on the serving path: {missing}")
     log(f"phase 7 (serving path): {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 8 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    sharded_launched, sharded_checks = sharded_path(
+        db, QUERIES, card, unsharded_ms, counters, args)
+    for name, c in sharded_checks.items():
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"],
+                                          c["max_abs_err"])
+    log(f"sharded path launches (opt-pallas): "
+        f"{json.dumps(sharded_launched)}")
+    if not args.rehearse:
+        check(any(sharded_launched.values()),
+              "no kernel launched on the sharded path")
+    log(f"phase 8 (sharded path): {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    fuzz_phase(args)
+    log(f"phase 9 (fuzzer): {time.perf_counter() - t0:.1f} s")
+
     # -- phase 6 ------------------------------------------------------------
     rows = []
     for name in ENGINE_KERNELS + LIBRARY_KERNELS:
@@ -1605,6 +1912,10 @@ def main() -> int:
             "launches": launched[name] if name in launched
             else c["launches"],
             "serving_launches": serving_launched.get(name),
+            "sharded_launches": sharded_launched.get(name),
+            "sharded_rows": sharded_checks.get(name, {}).get("rows"),
+            "sharded_max_abs_err": sharded_checks.get(name, {}).get(
+                "max_abs_err"),
             "max_abs_err": c["max_abs_err"], "ms": c.get("ms"),
             "device_ms": c.get("device_ms"),
             "kernels_per_call": c.get("kernels_per_call"),

@@ -5,7 +5,10 @@ for the reference):
   passes/             — the optimization-pass library (paper §3)
   analysis/           — schema/property inference and the pass verifier
   operators/          — physical operators: stage(node, ctx) -> Frame
-  backend.py          — the torch ops whose semantics the operators rely on
+  backend.py          — the torch ops whose semantics the operators rely
+                        on, and the mesh collectives
+  mesh.py             — the 1-D data mesh of sharded execution: one
+                        thread per shard, collectives at a rendezvous
   compile.py          — staging: one resident program per query (`run`,
                         bind-many `run_many`, `compile` builds its kernels)
   plan_cache.py       — runtime: compile-once / bind-many plan cache,

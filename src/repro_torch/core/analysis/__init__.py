@@ -1,6 +1,6 @@
 """Static analysis over the plan IR.
 
-Two parts:
+Three parts:
 
   * schema & property inference (`schema.py`, `properties.py`): one
     bottom-up dataflow pass computing per-node output schemas (dtype
@@ -10,6 +10,9 @@ Two parts:
   * the inter-pass verifier (`verify.py`): a rule registry over the
     analysis results, run after every pass when `Settings.verify_passes`
     is on — violations raise `PlanInvariantError` naming the pass;
+  * the plan fuzzer (`fuzz.py`, imported on demand — it pulls in the
+    compile stack): seeded random TPC-H plans driven through every preset
+    ladder rung against the port's Volcano engine.
 """
 from repro_torch.core.analysis.properties import (Analysis, NodeInfo, analyze,
                                             composite_pack_bound)

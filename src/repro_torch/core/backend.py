@@ -10,7 +10,11 @@ the reference package's backend:
     torch indexing raises instead);
   * `segment_max`/`segment_min` leave an empty segment at `fill`;
   * `compact` zero-fills the slots past the valid count;
-  * `searchsorted` is `jnp.searchsorted`'s left side.
+  * `searchsorted` is `jnp.searchsorted`'s left side;
+  * the mesh collectives (`psum`, `pmax`, `pmin`, `all_gather`,
+    `axis_index`) act on the shard group the staged walk is bound to
+    (`core/mesh.py`), and are identities on the collection walk, which
+    has no group: sharded staging decisions see a one-shard world there.
 """
 from __future__ import annotations
 
@@ -20,8 +24,10 @@ import torch
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", group=None, rank: int = 0):
         self.device = torch.device(device)
+        self.group = group        # mesh.ShardGroup of a sharded staged walk
+        self.rank = rank
 
     @staticmethod
     def take(arr, idx):
@@ -103,3 +109,34 @@ class TorchBackend:
     def barrier(x):
         """Eager torch has no fusion scope to cut: the identity."""
         return x
+
+    # -- mesh collectives over the bound shard group: every shard's value,
+    # -- combined in rank order, so every shard gets the same bits
+    def _reduce(self, x, op):
+        if self.group is None:
+            return x
+        vals = self.group.exchange(self.rank, x)
+        out = vals[0]
+        for v in vals[1:]:
+            out = op(out, v)
+        return out
+
+    def psum(self, x, axis):
+        return self._reduce(x, torch.add)
+
+    def pmax(self, x, axis):
+        return self._reduce(x, torch.maximum)
+
+    def pmin(self, x, axis):
+        return self._reduce(x, torch.minimum)
+
+    def all_gather(self, x, axis, tiled=False):
+        """The shards' `x` concatenated (`tiled`) or stacked along a new
+        leading axis, in rank order."""
+        if self.group is None:
+            return x if tiled else x[None]
+        vals = self.group.exchange(self.rank, x)
+        return torch.cat(vals) if tiled else torch.stack(vals)
+
+    def axis_index(self, axis) -> int:
+        return self.rank

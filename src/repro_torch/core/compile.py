@@ -38,6 +38,18 @@ which runs N bindings as one vmapped XLA program padded to a power-of-two
 bucket, there is no trace to amortise in eager torch, so nothing is
 padded (`pads_batches = False`) and each binding is one staged walk;
 each slot's answer is `run(bindings_list[i])`'s.
+
+Sharded execution (`Settings.shards != 1`): the Sharding pass partitions
+the partition root and the tables routed to it over a 1-D data mesh
+(`core/mesh.py`); the collection walk registers their partitioned
+copies under shard-scoped keys, and those are split into one block per
+shard at construction.  `execute` runs the staged walk once per shard,
+each in a thread of its own on its block (`DataMesh.run`, the
+counterpart of the reference's `shard_map`); the collectives combine in
+rank order, so every shard's output is the same, and shard 0's is the
+result.  Each point's count is an `(n_shards,)` vector, read in the same
+one device-to-host copy; overflow and the scalar feedback key off the
+worst shard, and `observed_shard` keeps the per-shard maxima.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import torch
 from repro_torch.core import ir
 from repro_torch.core.backend import TorchBackend
 from repro_torch.core.expr import Param
+from repro_torch.core.mesh import AXIS, data_mesh, resolve_shards
 from repro_torch.core.operators import StageCtx, frame_nrows
 from repro_torch.core.passes.param_binding import plan_params
 from repro_torch.core.passes.pipeline import Settings, optimize
@@ -124,9 +137,9 @@ class CompiledQuery:
                    for n in ir.walk(plan)) else None
         t0 = time.perf_counter()
         self.plan = optimize(plan, db, settings,
-                             est_params=est_params if est_params is not None
-                             else (params or {}),
-                             observed=observed)
+                             est_params=est_params
+                             if est_params is not None else (params or {}),
+                             observed=observed, device=self.device)
         self.pass_time = time.perf_counter() - t0
         # hand-planted Compact nodes get stable `h<i>` ids; then the points
         # split into real compaction points (capacity > 0) and
@@ -159,10 +172,21 @@ class CompiledQuery:
         # window max
         self._obs_lock = threading.Lock()
         self.observed_max: dict[str, int] = {}
+        # per-shard all-time max vectors (shape (n_shards,)) — a sharded
+        # walk reports every point's count per shard
+        self.observed_shard: dict[str, np.ndarray] = {}
         self.under_streak = 0
         self.streak_max: dict[str, int] = {}
         self._cache_key: Optional[tuple] = None   # set by PlanCache
         self.compile_time: Optional[float] = None
+        # sharded execution: the Sharding pass resolved the same settings
+        # on the same device, so the mesh shape here matches the
+        # per-shard capacities it planted
+        self.n_shards = resolve_shards(settings, self.device)
+        self._mesh = data_mesh(self.n_shards, self.device) \
+            if self.n_shards > 1 else None
+        self._shard_plan = db.shard_plan(self.n_shards) \
+            if self._mesh is not None else None
 
         spec = plan_params(self.plan)
         structural = sorted(n for n, i in spec.items() if i.structural)
@@ -192,20 +216,70 @@ class CompiledQuery:
 
         sampler = StageCtx(db, settings, TorchBackend("cpu"), collect_input,
                            self.param_defaults, device=torch.device("cpu"),
-                           staged=False)
+                           staged=False, **self._mesh_ctx())
         sample_frame = sampler.stage(self.plan)
         self.out_meta = [(name, b.kind, b.table, b.col)
                          for name, b in sample_frame.cols.items()]
+        # input keys whose arrays are partitioned over the data axis
+        # (registered by sharded Scans during the collection walk)
+        self.sharded_keys = frozenset(sampler.sharded_keys)
         # a dead-but-declared param must still be an input of the program
         for name, dtype in self.param_spec.items():
             sampler.param(Param(name, dtype))
 
         # 2. the resident inputs: every base column and index structure is
-        #    copied to the device once, here; params are bound per run
-        self.resident = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in self.inputs.items()
-                         if not k.startswith("param/")}
+        #    copied to the device once, here; params are bound per run.
+        #    Under a mesh each shard gets its own dict (`shard_resident`):
+        #    its block of every partitioned input and the replicated rest.
+        self.resident: dict = {}
+        self.shard_resident: list[dict] = []
+        if self._mesh is None:
+            self.resident = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in self.inputs.items()
+                             if not k.startswith("param/")}
+        else:
+            self.shard_resident = self._shard_blocks()
         self.stage_time = time.perf_counter() - t0
+
+    def _mesh_ctx(self) -> dict:
+        """The StageCtx fields of a sharded walk (none unsharded)."""
+        if self._mesh is None:
+            return {}
+        return dict(axis=AXIS, n_shards=self.n_shards,
+                    shard_plan=self._shard_plan)
+
+    def _shard_blocks(self) -> list[dict]:
+        """One resident input dict per shard.  A partitioned input's
+        block s is rows [s*P, (s+1)*P) of its padded copy: a view of one
+        tensor when every shard sits on one device, a copy on its shard's
+        device otherwise.  A replicated input is copied once a device."""
+        devs = self._mesh.devices
+        n = self.n_shards
+        one_device = len(set(devs)) == 1
+        blocks: list[dict] = [{} for _ in range(n)]
+        for k, v in self.inputs.items():
+            if k.startswith("param/"):
+                continue
+            if k not in self.sharded_keys:
+                on = {d: torch.from_numpy(v).to(d) for d in set(devs)}
+                for s, d in enumerate(devs):
+                    blocks[s][k] = on[d]
+                continue
+            rows = v.shape[0] // n      # ShardPlan pads to n blocks
+            whole = torch.from_numpy(v).to(devs[0]) if one_device else None
+            for s, d in enumerate(devs):
+                lo, hi = s * rows, (s + 1) * rows
+                blocks[s][k] = whole[lo:hi] if one_device else \
+                    torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(d)
+        return blocks
+
+    def _synchronize(self) -> None:
+        """Wait for every CUDA device the query runs on."""
+        devs = self._mesh.devices if self._mesh is not None \
+            else (self.device,)
+        for d in set(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def compile(self) -> float:
         """Build every kernel library the staged walk reaches: one walk
@@ -216,8 +290,7 @@ class CompiledQuery:
         as `compile_time`) its seconds."""
         t0 = time.perf_counter()
         self.execute(self.bind())
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
         self.compile_time = time.perf_counter() - t0
         return self.compile_time
 
@@ -248,10 +321,35 @@ class CompiledQuery:
     # -- execution -------------------------------------------------------------
     def execute(self, inputs: dict):
         """The staged walk: (columns, mask, per-point counts), all on the
-        device, nothing synchronized."""
-        ctx = StageCtx(self.db, self.settings, TorchBackend(self.device),
+        device, nothing synchronized.  Under a mesh: shard 0's columns and
+        mask (every shard's are the same) and each point's counts as an
+        `(n_shards,)` vector."""
+        if self._mesh is None:
+            return self._walk(inputs, self.device)
+        shards = self.execute_shards(inputs)
+        out, mask, counts = shards[0]
+        dev = self._mesh.devices[0]
+        return out, mask, {
+            pid: torch.stack([torch.as_tensor(s[2][pid], device=dev)
+                              .reshape(()) for s in shards])
+            for pid in counts}
+
+    def execute_shards(self, inputs: dict) -> list:
+        """The sharded staged walk: every shard's (columns, mask, counts),
+        in rank order.  `inputs` is `bind()`'s: the bound parameters; each
+        shard reads its own resident blocks."""
+        per = [{**blocks, **inputs} for blocks in self.shard_resident]
+        devs = self._mesh.devices
+        return self._mesh.run(
+            lambda rank, group, inp: self._walk(inp, devs[rank], group, rank),
+            per)
+
+    def _walk(self, inputs: dict, device, group=None, rank: int = 0):
+        ctx = StageCtx(self.db, self.settings,
+                       TorchBackend(device, group, rank),
                        lambda key, make: inputs[key],
-                       self.param_defaults, device=self.device, staged=True)
+                       self.param_defaults, device=device, staged=True,
+                       **self._mesh_ctx())
         frame = ctx.stage(self.plan)
         out = {name: b.arr for name, b in frame.cols.items()}
         mask = frame.mask if frame.mask is not None \
@@ -323,17 +421,35 @@ class CompiledQuery:
                    if pid in self.point_caps)
 
     def _counts_to_host(self, runs: list[dict]) -> list[dict]:
-        """Every run's point counts as Python ints, in ONE device-to-host
+        """Every run's point counts on the host, in ONE device-to-host
         copy for all of them (a copy each would wait on the device once a
-        point).  A count can be a CPU scalar (a measure-only point over a
-        frame with no mask)."""
-        flat = [c for counts in runs for c in counts.values()]
+        point): Python ints, or under a mesh `(n_shards,)` int64 arrays.
+        A count can be a CPU scalar (a measure-only point over a frame
+        with no mask)."""
+        flat = [torch.as_tensor(c, device=self.device).reshape(-1)
+                .to(torch.int64) for counts in runs for c in counts.values()]
         if not flat:
             return [{} for _ in runs]
-        vals = iter(torch.stack([
-            torch.as_tensor(c, device=self.device).reshape(()).to(torch.int64)
-            for c in flat]).cpu().tolist())
-        return [{pid: next(vals) for pid in counts} for counts in runs]
+        vals = torch.cat(flat).cpu().numpy()
+        k, at, out = self.n_shards, 0, []
+        for counts in runs:
+            got = {}
+            for pid in counts:
+                v = vals[at:at + k]
+                got[pid] = v if k > 1 else int(v[0])
+                at += k
+            out.append(got)
+        return out
+
+    def _observe_shards(self, runs: list[dict]) -> None:
+        """Elementwise-max merge of per-shard count vectors (shape
+        (n_shards,)) into the all-time per-shard state."""
+        with self._obs_lock:
+            for vecs in runs:
+                for pid, v in vecs.items():
+                    old = self.observed_shard.get(pid)
+                    self.observed_shard[pid] = \
+                        v.copy() if old is None else np.maximum(old, v)
 
     def _result(self, out, mask) -> dict[str, np.ndarray]:
         copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
@@ -348,7 +464,12 @@ class CompiledQuery:
         overflowed re-runs uncompacted through the twin (its compacted
         frames dropped rows; the twin's probes report every site's TRUE
         count, folded back for the feedback store), and the rest are
-        decoded."""
+        decoded.  Under a mesh the per-shard vectors are kept in
+        `observed_shard`, and the rest keys off the worst shard."""
+        if self.n_shards > 1:
+            self._observe_shards(counts)
+            counts = [{pid: int(v.max()) for pid, v in c.items()}
+                      for c in counts]
         bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
         self._observe(counts, len(bad))
         results = [None if i in bad else self._result(out, mask)
@@ -401,6 +522,14 @@ class CompiledQueryBatch:
 
     def __init__(self, plans, db: Database, settings: Settings,
                  device=None):
+        if resolve_shards(settings, resolve_device(device)) != 1:
+            # each member would need its own mesh run and its own
+            # partitioned blocks; nothing is shared across members either
+            # way, so the combination is rejected rather than
+            # half-supported
+            raise NotImplementedError(
+                "CompiledQueryBatch does not compose with sharded "
+                "execution (Settings.shards != 1)")
         self.queries = [CompiledQuery(p, db, settings, device=device)
                         for p in plans]
 

@@ -6,8 +6,8 @@ in a `CompiledQuery`."""
 from __future__ import annotations
 
 from repro_torch.core import ir
-from repro_torch.core.operators import (agg, compact, join, limit, project,
-                                        scan, select, sort)
+from repro_torch.core.operators import (agg, compact, exchange, join, limit,
+                                        project, scan, select, sort)
 from repro_torch.core.operators.base import (Binding, Frame, FrameEnv,
                                              StageCtx, frame_nrows)
 
@@ -18,6 +18,7 @@ _DISPATCH = {
     ir.Join: join.stage,
     ir.Agg: agg.stage,
     ir.Compact: compact.stage,
+    ir.Exchange: exchange.stage,
     ir.Sort: sort.stage,
     ir.Limit: limit.stage,
 }
@@ -26,8 +27,7 @@ _DISPATCH = {
 def stage(node: ir.Plan, ctx: StageCtx, defer: bool = False) -> Frame:
     fn = _DISPATCH.get(type(node))
     if fn is None:
-        raise NotImplementedError(
-            f"{type(node).__name__} is not ported to repro_torch yet")
+        raise TypeError(type(node))
     return fn(node, ctx, defer)
 
 

@@ -93,6 +93,9 @@ def _fused_stage(a: ir.Agg, f: Frame, pred, ctx: StageCtx):
     sums_m, cnt, _total = kops.selective_agg_query(
         cols_d, scalars, fu.TileFn(pred, pnames),
         [fu.TileFn(e, pnames) for e in val_exprs], gidx_fn, n_groups)
+    if f.part is not None:
+        sums_m = ctx.backend.psum(sums_m, ctx.axis)
+        cnt = ctx.backend.psum(cnt, ctx.axis)
 
     def agg_col(spec, row):
         if spec.fn == "sum":
@@ -166,6 +169,9 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         sums_m, cnt = kops.filter_agg_query(
             mask, gidx,
             [vals[nm].to(torch.float32).contiguous() for nm in names], D)
+        if f.part is not None:
+            sums_m = be.psum(sums_m, ctx.axis)
+            cnt = be.psum(cnt, ctx.axis)
         return ({nm: sums_m[:, i] for i, nm in enumerate(names)}, cnt)
 
     if a.strategy == "scalar" or not a.group_by:
@@ -185,20 +191,33 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
                         torch.float32)
                 cols[spec.name] = Binding(v, "num")
             return Frame(cols)
+        # partitioned input: every reduction is computed over the local
+        # shard and combined with the matching collective BEFORE any
+        # finalization (avg divides psum(sum) by psum(count)), so the
+        # output is bit-identical on every shard — replicated, no Exchange
+        combine = f.part is not None
+
+        def psum(v):
+            return be.psum(v, ctx.axis) if combine else v
+
         cols = {}
         for spec in a.aggs:
             if spec.fn == "count":
-                v = mi32.sum(dtype=torch.int32)
+                v = psum(mi32.sum(dtype=torch.int32))
             elif spec.fn == "sum":
-                v = torch.where(mask, vals[spec.name], 0).sum()
+                v = psum(torch.where(mask, vals[spec.name], 0).sum())
             elif spec.fn == "avg":
-                sv = torch.where(mask, vals[spec.name], 0).sum()
-                cv = mi32.sum(dtype=torch.int32)
+                sv = psum(torch.where(mask, vals[spec.name], 0).sum())
+                cv = psum(mi32.sum(dtype=torch.int32))
                 v = sv / cv.clamp_min(1).to(torch.float32)
             elif spec.fn == "min":
                 v = torch.where(mask, vals[spec.name], F32BIG).min()
+                if combine:
+                    v = be.pmin(v, ctx.axis)
             elif spec.fn == "max":
                 v = torch.where(mask, vals[spec.name], -F32BIG).max()
+                if combine:
+                    v = be.pmax(v, ctx.axis)
             cols[spec.name] = Binding(v[None], "num")
         return Frame(cols)
 
@@ -217,18 +236,28 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         present = (kernel_counts > 0).to(torch.int32)
     else:
         present = be.segment_max(mi32, idx, D, 0)
+        if f.part is not None:
+            present = be.pmax(present, ctx.axis)
     cols = _key_columns(a, f, ctx, D)
+    combine = f.part is not None
     for c in a.carry:
         b = f.cols[c]
         if b.arr.ndim == 2:
             data = torch.where(mask[:, None], b.arr, 0)
             carried = be.segment_max(data, idx, D, 0)
         elif b.arr.dtype.is_floating_point:
+            # the cross-shard combine below is a pmax: the empty-slot
+            # fill must be max's identity, or a shard holding none of a
+            # group's rows would beat the real (negative) carry with a 0
             carried = be.segment_max(torch.where(mask, b.arr, -F32BIG),
-                                     idx, D, 0.0)
+                                     idx, D, -F32BIG if combine else 0.0)
         else:
             data = torch.where(mask, b.arr, -1).to(b.arr.dtype)
-            carried = be.segment_max(data, idx, D, 0)
+            carried = be.segment_max(data, idx, D, -1 if combine else 0)
+        if combine:
+            # a group's rows may straddle shards; max-combining matches
+            # the single-device carry-via-max semantics
+            carried = be.pmax(carried, ctx.axis)
         cols[c] = Binding(carried, b.kind, b.table, b.col)
     sums, counts, mins, maxs = {}, {}, {}, {}
     for spec in a.aggs:
@@ -249,6 +278,13 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
             maxs[spec.name] = be.segment_max(
                 torch.where(mask, vals[spec.name], -F32BIG), idx, D,
                 -F32BIG)
+    if combine and kernel_sums is None:
+        # shard-local partials -> replicated totals, combined before
+        # _finalize so avg divides global sum by global count
+        sums = {k: be.psum(v, ctx.axis) for k, v in sums.items()}
+        counts = {k: be.psum(v, ctx.axis) for k, v in counts.items()}
+        mins = {k: be.pmin(v, ctx.axis) for k, v in mins.items()}
+        maxs = {k: be.pmax(v, ctx.axis) for k, v in maxs.items()}
     for spec in a.aggs:
         cols[spec.name] = Binding(
             _finalize(spec, sums, counts, mins, maxs), "num")
@@ -262,6 +298,14 @@ def _generic(a: ir.Agg, f: Frame, mask, vals: dict, ctx: StageCtx,
     group ids from the cumulative sum of key changes, and segment sums,
     counts, mins and maxes over them.  The frame keeps the input's row
     count; its first `n_groups` rows are the groups in key order."""
+    if f.part is not None:
+        from repro_torch.core.analysis import PlanInvariantError
+
+        raise PlanInvariantError(
+            "shard-invariance",
+            "generic (sort-based) aggregation over a partitioned frame "
+            "would group each shard independently — needs a gather "
+            "Exchange", node=a, pass_name="staging")
     be = ctx.backend
     n = frame_nrows(f)
     sort_keys: list = []   # major..minor

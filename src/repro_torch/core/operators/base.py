@@ -47,6 +47,13 @@ class Frame:
     # mask-invalid.  pk_gather consumes it to probe a compacted build
     # side by key value.
     slot_of: Any = None
+    # partition root table when this frame's rows are physically sharded
+    # over the mesh's data axis (see loader.ShardPlan); None = replicated.
+    # Set by the Scan operator from the Sharding pass's annotation and
+    # threaded through every operator identically in both walks — it is
+    # what tells a join to rebase positional indices, an aggregation to
+    # psum its partials, and an Exchange to all-gather.
+    part: Optional[str] = None
 
 
 def frame_nrows(f: Frame) -> int:
@@ -85,6 +92,17 @@ class StageCtx:
     # point's id: the staged program's third output.  A count above the
     # point's capacity is the overflow signal.
     compact_counts: dict = dataclasses.field(default_factory=dict)
+    # sharded execution (Settings.shards > 1): `axis` is the mesh axis the
+    # staged walk runs over, once per shard (None single-device — the
+    # collection walk gets the axis too, where the backend's collectives
+    # are identities), `n_shards` its size, `shard_plan` the loader's
+    # co-partitioning layout.  `sharded_keys` collects the input keys
+    # whose arrays are partitioned over the axis — compile.py splits
+    # them into per-shard blocks.
+    axis: Optional[str] = None
+    n_shards: int = 1
+    shard_plan: Any = None
+    sharded_keys: set = dataclasses.field(default_factory=set)
 
     @property
     def use_kernels(self) -> bool:

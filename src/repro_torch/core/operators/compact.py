@@ -108,4 +108,5 @@ def stage(c: ir.Compact, ctx: StageCtx, defer: bool = False) -> Frame:
     cols = {name: Binding(be.take(b.arr, idx), b.kind, b.table, b.col)
             for name, b in f.cols.items()}
     newmask = ctx.arange(cap) < count
-    return Frame(cols, newmask, f.pending, capacity=cap, slot_of=slot)
+    return Frame(cols, newmask, f.pending, capacity=cap, slot_of=slot,
+                 part=f.part)

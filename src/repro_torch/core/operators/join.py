@@ -62,8 +62,21 @@ def _pk_gather(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     else:
         idx = stream.cols[j.stream_key].arr
         bmask_g = None
+        if build.part is not None:
+            # co-partitioned build (root range partition): the FK is a
+            # *global* parent row id, the build frame holds only this
+            # shard's block [s*P, (s+1)*P) — rebase to the local row.
+            # A routed stream's keys land in-range by construction
+            # (ShardPlan sends every row to its parent's owner); the
+            # bound check still runs so hand-built plans fail masked,
+            # not silently wrong.
+            n_b = frame_nrows(build)
+            local = idx - be.axis_index(ctx.axis) * n_b
+            bmask_g = (local >= 0) & (local < n_b)
+            idx = local.clamp(0, max(n_b - 1, 0))
         if build.mask is not None:
-            bmask_g = be.take(build.mask, idx)
+            got = be.take(build.mask, idx)
+            bmask_g = got if bmask_g is None else bmask_g & got
     cols = dict(stream.cols)
     for name, b in build.cols.items():
         if name in cols:
@@ -75,7 +88,7 @@ def _pk_gather(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     mask = stream.mask
     if j.kind != "left" and bmask_g is not None:
         mask = and_masks(mask, bmask_g)
-    out = Frame(cols, mask)
+    out = Frame(cols, mask, part=stream.part)
     _apply_pending(out, build, ctx)
     return out
 
@@ -85,6 +98,7 @@ def _bucket_gather(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     on key1, discriminate on key2 within the static bucket width."""
     be = ctx.backend
     build = ctx.stage(j.build, defer=not ctx.settings.hoist)
+    _require_replicated(j, build, "bucket_gather")
     mat = ctx.input(
         f"{j.build_table}/fkbucket/{j.build_key}",
         lambda: ctx.db.fk_bucket(j.build_table, j.build_key)[0])
@@ -104,7 +118,7 @@ def _bucket_gather(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     for name, b in build.cols.items():
         if name not in cols:
             cols[name] = Binding(be.take(b.arr, idx), b.kind, b.table, b.col)
-    out = Frame(cols, and_masks(stream.mask, hit))
+    out = Frame(cols, and_masks(stream.mask, hit), part=stream.part)
     _apply_pending(out, build, ctx)
     return out
 
@@ -118,8 +132,14 @@ def _exists_flag(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     n_b = frame_nrows(build)
     bm = build.mask if build.mask is not None else ctx.ones(n_b)
     flags = be.segment_max(bm.to(torch.int32), build.cols[j.build_key].arr,
-                           j.domain, 0) > 0
-    hit = be.take(flags, stream.cols[j.stream_key].arr)
+                           j.domain, 0)
+    if build.part is not None:
+        # partitioned build: each shard scattered only its local rows
+        # into the (global-domain) flag vector — union across shards.
+        # The dense flag array is permutation-safe, so no Exchange is
+        # needed for semi/anti membership.
+        flags = be.pmax(flags, ctx.axis)
+    hit = be.take(flags > 0, stream.cols[j.stream_key].arr)
     if j.kind == "anti":
         hit = ~hit
     stream.mask = and_masks(stream.mask, hit)
@@ -134,6 +154,7 @@ def _generic(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
     sentinel stays above every packed key."""
     be = ctx.backend
     build = ctx.stage(j.build)
+    _require_replicated(j, build, "generic")
     n_b = frame_nrows(build)
     if j.stream_key2 is not None:
         k2b = _key2_bound(j, stream, build)
@@ -171,7 +192,23 @@ def _generic(j: ir.Join, stream: Frame, ctx: StageCtx) -> Frame:
             g = torch.where(hit, g, 0)
         cols[name] = Binding(g, b.kind, b.table, b.col)
     mask = stream.mask if j.kind == "left" else and_masks(stream.mask, hit)
-    return Frame(cols, mask)
+    return Frame(cols, mask, part=stream.part)
+
+
+def _require_replicated(j: ir.Join, build: Frame, strategy: str) -> None:
+    """Strategies that see only a shard-local slice of the build frame
+    would silently drop matches; the Sharding pass plants a gather
+    Exchange below them, so a partitioned build reaching staging is a
+    plan bug, not a data condition."""
+    if build.part is None:
+        return
+    from repro_torch.core.analysis import PlanInvariantError
+
+    raise PlanInvariantError(
+        "shard-invariance",
+        f"{strategy} join build on {j.build_key!r} is partitioned "
+        f"(root={build.part}) — needs a gather Exchange",
+        node=j, pass_name="staging")
 
 
 def _stats_max(frame: Frame, key: str):

@@ -27,4 +27,4 @@ def stage(lim: ir.Limit, ctx: StageCtx, defer: bool = False) -> Frame:
     cols = {name: Binding(b.arr[:n], b.kind, b.table, b.col)
             for name, b in f.cols.items()}
     mask = None if f.mask is None else f.mask[:n]
-    return Frame(cols, mask)
+    return Frame(cols, mask, part=f.part)

@@ -17,4 +17,4 @@ def stage(proj: ir.Project, ctx: StageCtx, defer: bool = False) -> Frame:
             new[name] = Binding(eval_expr(e, env), "num")
     # a Project is elementwise: the compaction pass sinks Compact points
     # below Projects, so capacity/slot_of must survive the projection
-    return Frame(new, f.mask, f.pending, f.capacity, f.slot_of)
+    return Frame(new, f.mask, f.pending, f.capacity, f.slot_of, f.part)

@@ -20,14 +20,26 @@ from repro_torch.relational.schema import ColKind
 
 def stage(scan: ir.Scan, ctx: StageCtx, defer: bool = False) -> Frame:
     db, be, s = ctx.db, ctx.backend, ctx.settings
-    if scan.shard is not None:
-        raise NotImplementedError(
-            "sharded scans are not ported to repro_torch yet")
     t = db.table(scan.table)
     cols = scan.columns if scan.columns is not None else t.schema.column_names
 
+    # Sharding-pass annotation: this scan's arrays live partitioned over
+    # the data axis.  Partitioned copies are registered under shard-scoped
+    # input keys (so the same table can also feed a replicated scan in
+    # another plan without key collisions) and recorded in
+    # `ctx.sharded_keys` — compile.py splits those into per-shard blocks.
+    # The pass never co-annotates a date_slice (the clustered permutation
+    # is global) so the two paths don't interact.
+    sp = None
+    if scan.shard is not None:
+        sp = db.shard_plan(scan.shard.n_shards)
+
     def reg(suffix, thunk):
-        return ctx.input(f"{scan.table}/{suffix}", thunk)
+        if sp is None:
+            return ctx.input(f"{scan.table}/{suffix}", thunk)
+        key = f"{scan.table}/shard{sp.n}/{suffix}"
+        ctx.sharded_keys.add(key)
+        return ctx.input(key, lambda: sp.col(scan.table, suffix, thunk))
 
     perm = None
     if scan.date_slice is not None:
@@ -84,4 +96,9 @@ def stage(scan: ir.Scan, ctx: StageCtx, defer: bool = False) -> Frame:
         if perm is not None:
             arr = be.take(arr, perm)
         bindings[c] = Binding(arr, kind, t, c)
-    return Frame(bindings)
+    if sp is None:
+        return Frame(bindings)
+    mkey = f"{scan.table}/shard{sp.n}/mask"
+    ctx.sharded_keys.add(mkey)
+    mask = ctx.input(mkey, lambda: sp.valid_mask(scan.table))
+    return Frame(bindings, mask, part=scan.shard.part)

@@ -28,4 +28,4 @@ def sort_frame(f: Frame, sort_keys, ctx: StageCtx) -> Frame:
     order = be.lexsort(list(reversed(keys)) + [~mask])
     cols = {name: Binding(be.take(b.arr, order), b.kind, b.table, b.col)
             for name, b in f.cols.items()}
-    return Frame(cols, be.take(mask, order))
+    return Frame(cols, be.take(mask, order), part=f.part)

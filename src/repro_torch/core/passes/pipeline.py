@@ -121,12 +121,9 @@ def build_pipeline(settings: Settings, bindings: dict | None = None,
         # after the join/agg strategies are fixed (it keys off them) and
         # before ColumnPruning (Exchange nodes are schema-transparent) /
         # Compaction (capacities must be planned per shard).
-        # the Sharding pass is not ported yet (torch.distributed execution
-        # comes later): refuse rather than run a single-device plan under a
-        # setting that promises a mesh
-        raise NotImplementedError(
-            "sharded execution (Settings.shards != 1) is not ported to "
-            "repro_torch yet")
+        from repro_torch.core.passes.sharding import Sharding
+
+        pipeline.append(Sharding())
     if settings.column_pruning:
         pipeline.append(ColumnPruning())      # prune post-rewrite
     if settings.compaction:
@@ -143,7 +140,17 @@ def build_pipeline(settings: Settings, bindings: dict | None = None,
 def optimize(plan: ir.Plan, db, settings: Settings,
              bindings: dict | None = None,
              est_params: dict | None = None,
-             observed: dict | None = None) -> ir.Plan:
+             observed: dict | None = None,
+             device=None) -> ir.Plan:
+    """Run the pass pipeline.  `device` is where the plan will run:
+    `settings.shards` resolves once, here, against its visible slots
+    (`mesh.resolve_shards`; None: the card when there is one, else the
+    CPU), and every pass reads the resolved count."""
+    if settings.shards != 1:
+        from repro_torch.core.mesh import resolve_shards
+
+        settings = dataclasses.replace(
+            settings, shards=resolve_shards(settings, device))
     pipeline = build_pipeline(settings, bindings, est_params, observed)
     if not settings.verify_passes:
         for p in pipeline:

@@ -56,26 +56,18 @@ from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
+import numpy as np
+
 from repro_torch.core import compile as compile_mod
 from repro_torch.core import ir
 from repro_torch.core import persist as persist_mod
 from repro_torch.core import tiering
 from repro_torch.core.compile import CompiledQuery, resolve_device
+from repro_torch.core.mesh import resolve_shards
 from repro_torch.core.passes.compaction import observed_bucket
 from repro_torch.core.passes.param_binding import bind_plan, plan_params
 from repro_torch.core.passes.pipeline import Settings, optimize
 from repro_torch.core.volcano import OracleQuery
-
-
-def _mesh_size(settings: Settings) -> int:
-    """The data-mesh size in the cache key: 1, the only one the port
-    runs.  Sharded settings raise here, before any keying, as the pass
-    pipeline does (sharded execution is not ported yet)."""
-    if settings.shards != 1:
-        raise NotImplementedError(
-            "sharded execution (Settings.shards != 1) is not ported to "
-            "repro_torch yet")
-    return 1
 
 
 @dataclasses.dataclass
@@ -121,6 +113,11 @@ class _Feedback:
     overflows: int = 0                     # since the last re-plan
     replans: int = 0
     shrinks: int = 0
+    # pid -> per-shard max-count vector (np.ndarray of len n_shards),
+    # harvested from sharded entries.  Reporting surface only (benchmarks
+    # read it to chart skew); capacity planning keys on the scalar
+    # `observed` max, which bounds every shard by construction.
+    observed_shard: dict = dataclasses.field(default_factory=dict)
     # capacity generation: bumped by every re-plan/shrink transition so a
     # signature computed against pre-transition overrides (optimize runs
     # outside the lock) can never be memoized after the transition
@@ -232,9 +229,18 @@ class PlanCache:
         # away copy; the memo keys it on the other components, so only the
         # first request for a plan shape pays and warm hits stay walk-free.
         base = (repr(plan), dataclasses.astuple(settings),
-                self.db.fingerprint, _mesh_size(settings))
+                self.db.fingerprint, self._mesh_size(settings))
         caps = self._capacity_signature(base, plan, settings, runtime)
         return base + (caps,), plan, runtime, owned
+
+    def _mesh_size(self, settings: Settings) -> int:
+        """Resolved data-mesh size for the cache key.  `astuple(settings)`
+        already carries the raw `shards` field, but `shards=0` means "all
+        visible devices" — two processes (or one process whose device
+        visibility changed) must not share an entry staged for a
+        different mesh, so the key carries the *resolved* count, on this
+        cache's device."""
+        return resolve_shards(settings, self.device)
 
     def _feedback_for(self, base: tuple, runtime: dict) -> _Feedback:
         """The plan shape's feedback record, created on first sight with
@@ -287,7 +293,8 @@ class PlanCache:
                     else dict(fb.overrides)
             try:
                 lowered = optimize(copy.deepcopy(plan), self.db, settings,
-                                   est_params=est, observed=overrides)
+                                   est_params=est, observed=overrides,
+                                   device=self.device)
                 caps = tuple(n.capacity for n in ir.walk(lowered)
                              if isinstance(n, ir.Compact))
             except KeyError:
@@ -661,6 +668,8 @@ class PlanCache:
             observed = dict(cq.observed_max)
             under = cq.under_streak
             streak_max = dict(cq.streak_max)
+            shard_obs = {pid: v.copy()
+                         for pid, v in cq.observed_shard.items()}
         # translate points are exempt from shrink decay: a translate
         # overflow silently drops build rows the probe then misses (wrong
         # answers, not just a fallback re-execution), so their capacity
@@ -675,6 +684,11 @@ class PlanCache:
             for pid, c in observed.items():
                 if c > fb.observed.get(pid, -1):
                     fb.observed[pid] = c
+            for pid, v in shard_obs.items():
+                old = fb.observed_shard.get(pid)
+                fb.observed_shard[pid] = v if (
+                    old is None or old.shape != v.shape
+                ) else np.maximum(old, v)
             fb.overflows += overflow_delta
             if fb.overflows >= s.compact_replan_after:
                 fb.overrides = {**(fb.overrides or {}), **fb.observed}

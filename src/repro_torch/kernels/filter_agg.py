@@ -57,9 +57,14 @@ def filter_agg_plain(mask, gidx, values: list, n_groups: int):
     n = mask.shape[0]
     vals = torch.stack(list(values), 1) if values else \
         torch.zeros((n, 0), dtype=torch.float32, device=mask.device)
-    sums = torch.zeros((n_groups, vals.shape[1]), dtype=torch.float32,
+    # summed in float64, rounded once: a float32 index_add_ adds row by
+    # row into one running sum a group, which on a card loses up to 1.5e-3
+    # of a sum of 500,000 small values (q1's discounts on one shard of
+    # SF 1), more than the kernels' tolerance against this version
+    sums = torch.zeros((n_groups, vals.shape[1]), dtype=torch.float64,
                        device=mask.device)
-    sums.index_add_(0, g, torch.where(ok[:, None], vals, 0.0))
+    sums.index_add_(0, g, torch.where(ok[:, None], vals.double(), 0.0))
+    sums = sums.to(torch.float32)
     counts = torch.zeros(n_groups, dtype=torch.int32, device=mask.device)
     counts.index_add_(0, g, ok.to(torch.int32))
     return sums, counts

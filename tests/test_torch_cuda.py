@@ -771,3 +771,42 @@ def test_failed_promotion_on_card_raises(cuda, sdb):
             srv.submit(build(), d).result(timeout=600)
         assert srv.cache.stats.promote_failures == 1
         assert srv.stats.errors >= 1
+
+
+@pytest.fixture
+def two_slots(cuda):
+    """Two mesh slots on the card: two CUDA devices when the machine has
+    them, else two virtual slots on cuda:0."""
+    from repro_torch.core import mesh
+
+    if torch.cuda.device_count() < 2:
+        mesh.virtual_devices("cuda:0", 2)
+    yield
+    mesh.virtual_devices("cuda:0", 1)
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3", "q6", "q12", "q19"])
+def test_sharded_query_on_card_matches_unsharded(cuda, sdb, two_slots,
+                                                 qname):
+    """A query on a 2-shard mesh of the card at opt-pallas (sf 0.05): the
+    unsharded card answer, every shard's output the same bits, and every
+    engine call a launch of its kernel."""
+    import dataclasses
+
+    import repro_torch.kernels.ops as kops
+
+    want = CompiledQuery(QUERIES[qname](), sdb, preset("opt-pallas")).run()
+    cq = CompiledQuery(QUERIES[qname](), sdb, dataclasses.replace(
+        preset("opt-pallas"), shards=2))
+    assert cq.n_shards == 2
+    calls = sum(kops.calls.values())
+    launches = sum(kc.launches.values()) + sum(kf.launches.values())
+    for _ in range(2):
+        assert_same(cq.run(), want, qname in SORT_INSENSITIVE)
+    assert cq.n_overflows == 0
+    assert (sum(kc.launches.values()) + sum(kf.launches.values())
+            - launches) == sum(kops.calls.values()) - calls
+    (out0, mask0, _), (out1, mask1, _) = cq.execute_shards(cq.bind())
+    assert torch.equal(mask0, mask1.to(mask0.device))
+    for k in out0:
+        assert torch.equal(out0[k], out1[k].to(out0[k].device)), k

@@ -5,10 +5,11 @@ same answers (`test_queries.assert_same`: exact on ints, rtol 2e-3 on
 floats), the same `CacheStats` (hits, misses, compiles, evictions and the
 compaction counters) and the same `STAGINGS` deltas: one staging per plan
 shape, none for a re-binding.  Beside it, what only the port has: the
-default device is CUDA with no CPU fallback, a sharded setting raises,
-and eviction, retirement and `close()` release an entry's resident
-inputs.  The query server's cache-facing behaviour (concurrent requests,
-one shared in-flight compilation, close under load) closes the file.
+default device is CUDA with no CPU fallback, the mesh size joins the key
+(more shards than visible devices raise), and eviction, retirement and
+`close()` release an entry's resident inputs.  The query server's
+cache-facing behaviour (concurrent requests, one shared in-flight
+compilation, close under load) closes the file.
 
 The helpers here (`Side`, `sides`, `stats_of`) serve the other
 `test_torch_*` runtime files too.
@@ -35,6 +36,7 @@ from repro.relational.queries import PARAM_QUERIES as REF_PQ
 from repro.relational.queries import QUERIES as REF_QUERIES
 from repro.serve.query_server import QueryServer as RefQueryServer
 from repro_torch.core import CompiledQuery, PlanCache, VolcanoEngine, preset
+from repro_torch.core import mesh
 from repro_torch.relational import Database
 from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
                                             PARAM_QUERIES, QUERIES)
@@ -263,10 +265,27 @@ def test_reload_invalidates_capacity_memo_and_entries(sides):
 # ---------------------------------------------------------------------------
 
 def test_sharded_settings_raise(pdb):
+    """The counterpart of the reference's
+    `test_sharding.py::test_mesh_shape_joins_cache_key`: the mesh shape
+    joins the key, `opt-shard` (shards=0) keys on the RESOLVED slot
+    count, and more shards than the device has visible raise."""
     cache = PlanCache(pdb, device="cpu")
-    with pytest.raises(NotImplementedError, match="shards"):
-        cache.key_for(QUERIES["q6"](), dataclasses.replace(preset("opt"),
-                                                           shards=2))
+    plan = QUERIES["q6"]
+    sharded = dataclasses.replace(preset("opt"), shards=2)
+    k1 = cache.key_for(plan(), preset("opt"))
+    mesh.virtual_devices("cpu", 4)
+    try:
+        k2 = cache.key_for(plan(), sharded)
+        assert k1 != k2 and k2[3] == 2
+        k_auto = cache.key_for(plan(), preset("opt-shard"))
+        assert k_auto[3] == mesh.resolve_shards(preset("opt-shard"),
+                                                "cpu") == 4
+        assert k_auto != k1
+    finally:
+        mesh.virtual_devices("cpu", 1)
+    assert cache.key_for(plan(), preset("opt-shard"))[3] == 1
+    with pytest.raises(ValueError, match="shards=2"):
+        cache.key_for(plan(), sharded)
 
 
 def _released(refs) -> bool:
