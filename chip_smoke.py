@@ -103,6 +103,24 @@ result line):
      rung (opt-shard over 4 virtual slots), `naive` and `opt` compiled
      against the port's Volcano, the first 4 also at opt-pallas; no
      failure;
+  10. the language-model serving path (no kernel of the port's: the
+     reference computes it in plain JAX): (a) Qwen1.5-0.5B at full width
+     (24 layers, d_model 1,024, vocab 151,936, bf16 compute), weights
+     from `torch.Generator().manual_seed(0)` on the CPU copied to the
+     card, through `ServeEngine` with the serving launcher's defaults
+     (8 requests, 4 slots, max_len 128, 12 new tokens): every step's
+     card logits against a batch-1 bf16 replay of the same tokens
+     through `decode_step` on the CPU (LM_BF16_REL), then from a second
+     run the median and minimum decode tick with 4 live slots, tok/s,
+     the ms of a 128-token prefill at batch 1 and the peak device
+     memory, printed beside the card's name and power limit; (b) the
+     same model in float32, each request at slots=4 against it alone at
+     slots=1 on the same token stream (LM_F32_REL); (c) all ten
+     families at smoke width on the card and the CPU with the same
+     weights: prefill, 6 decode steps at a (B,) position vector and a
+     2-slot engine over 3 requests, logits and caches within
+     LM_SMOKE_TOL, the engine's tokens equal.  Prints an
+     `{"lm_serving": ...}` line;
   6. print one `{"kernels": [...]}` line (`launches` from phase 5,
      `serving_launches` from phase 7, `sharded_launches` from phase 8's
      opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
@@ -124,7 +142,8 @@ query answers to the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
 
 `--rehearse` runs the same phases on the CPU (plain versions only, no
 build, no launch checks) at `--sf`, to test the script without a card;
-it prints no result line.  On the card the script runs at SF 1, seed 0
+phase 10 there runs the smoke widths only (Qwen at 2 layers, in bf16
+for (a)); it prints no result line.  On the card the script runs at SF 1, seed 0
 only, the size its launch table holds.
 """
 from __future__ import annotations
@@ -1749,6 +1768,280 @@ def fuzz_phase(args) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the language-model serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen1_5_0_5b"         # the default of the serving launcher
+LM_PREFILL = 128                 # tokens of the timed prefill, batch 1
+LM_PREFILL_RUNS = 5
+# a step's largest |card - CPU| logit over its largest |CPU| logit, both
+# in bf16 on the same token stream: 24 layers of bf16 products rounded in
+# different orders (cuBLAS against the CPU's) drift by a few bf16 ulps
+# (2^-8 each) of the hidden state, far under 5 %
+LM_BF16_REL = 5e-2
+# the same measure for a request at slots=4 against it alone at slots=1,
+# float32 on the card: only the products' order differs (batch 4 and 1)
+LM_F32_REL = 1e-4
+# card against CPU at smoke widths, float32: the CPU tests' tolerance of
+# the port against the reference
+LM_SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def rel_err(got, want) -> float:
+    """The largest |got - want| over the largest |want|, got finite."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_requests(cfg, record: bool):
+    from repro_torch.launch import serve as launch
+
+    reqs = launch.make_requests(cfg, 8, 12)
+    for r in reqs:
+        r.logits = [] if record else None
+    return reqs
+
+
+def lm_full_width(args, card: str) -> dict:
+    """(a) Qwen1.5-0.5B at full width in bf16 on the card: the launcher's
+    defaults (8 requests, 4 slots, max_len 128, 12 new tokens), every
+    step's card logits against a batch-1 bf16 replay through
+    `decode_step` on the CPU, then the tick, tok/s, prefill and memory
+    numbers from a second, unrecorded run; (b) the same model in float32,
+    each request at slots=4 against it alone at slots=1 on the same
+    stream.  A rehearsal runs the smoke width (2 layers) on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import (Ctx, cast_params, decode_step,
+                                    init_cache, init_params, prefill)
+    from repro_torch.serve.batcher import Request, ServeEngine
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    cfg = get_config(LM_ARCH) if cuda else dataclasses.replace(
+        smoke_config(LM_ARCH), dtype="bfloat16")
+    ctx = Ctx()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "card": card}
+    t0 = time.perf_counter()
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out["params"] = sum(p.numel() for p in masters.parameters())
+    out["init_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- (a) bf16, recorded, then timed ------------------------------------
+    eng = ServeEngine(masters, cfg, ctx, slots=4, max_len=128, device=dev)
+    reqs = lm_requests(cfg, record=True)
+    launch.drain(eng, reqs)
+    check(all(r.done and len(r.out) == 13 for r in reqs),
+          "phase 10: a request was not served in full")
+    timed = lm_requests(cfg, record=False)
+    res = launch.drain(ServeEngine(eng.params, cfg, ctx, slots=4,
+                                   max_len=128, device=dev), timed)
+    decode = [ms for live, admitted, ms in res["ticks"]
+              if live == 4 and admitted == 0]
+    check(decode, "phase 10: no decode tick with 4 live slots")
+    out.update(tokens=res["tokens"], ticks=len(res["ticks"]),
+               seconds=res["seconds"],
+               tok_per_s=res["tokens"] / res["seconds"],
+               decode_ticks=len(decode),
+               tick_ms_median=statistics.median(decode),
+               tick_ms_min=min(decode),
+               same_tokens_as_recorded=[r.out for r in timed]
+               == [r.out for r in reqs])
+    check(out["same_tokens_as_recorded"],
+          "phase 10 (a): the timed run served other tokens than the "
+          "checked run")
+    toks = torch.randint(0, cfg.vocab, (1, LM_PREFILL),
+                         generator=torch.Generator().manual_seed(1))
+    ms = []
+    for i in range(LM_PREFILL_RUNS + 1):
+        t = time.perf_counter()
+        logits, _ = prefill(eng.params, {"tokens": toks}, cfg, ctx)
+        logits.float().cpu()
+        if i:
+            ms.append((time.perf_counter() - t) * 1e3)
+    out.update(prefill_ms_median=statistics.median(ms),
+               prefill_ms_min=min(ms))
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # where a tick's time goes: one 4-slot decode step and the
+        # prefill under torch.profiler (device ms and kernels a call)
+        cache = init_cache(cfg, 4, 128, device=dev)
+        step = torch.tensor([3, 40, 77, 126])
+        for name, fn in (
+                ("decode", lambda: decode_step(eng.params, step % cfg.vocab,
+                                               cache, step, cfg, ctx)),
+                ("prefill", lambda: prefill(eng.params, {"tokens": toks},
+                                            cfg, ctx))):
+            prof = profile_call(fn, calls=3)
+            top = sorted(prof["device_kernels"].items(), key=lambda kv: -kv[1])
+            out[f"{name}_device_ms"] = prof["device_ms"]
+            out[f"{name}_kernels"] = prof["kernels_per_call"]
+            out[f"{name}_top_kernels"] = dict(top[:5])
+
+    t0 = time.perf_counter()
+    host = cast_params(masters, cfg, "cpu")
+    worst = 0.0
+    for r in reqs:
+        cache = init_cache(cfg, 1, 128, device="cpu")
+        stream = [int(t) for t in r.prompt] + r.out[:-1]
+        for i, tok in enumerate(stream):
+            logits, cache = decode_step(host, torch.tensor([tok]), cache, i,
+                                        cfg, ctx)
+            k = i - (len(r.prompt) - 1)
+            if k >= 0:
+                e = rel_err(r.logits[k], logits[0])
+                check(e <= LM_BF16_REL, f"phase 10 (a) request {r.rid} "
+                      f"step {k}: card against CPU {e:.3g} > {LM_BF16_REL}")
+                worst = max(worst, e)
+    out.update(bf16_rel_err=worst, replay_s=time.perf_counter() - t0)
+    del eng, host
+
+    # -- (b) float32: slots=4 against alone ---------------------------------
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = cast_params(masters, cfg32, dev)
+    reqs = lm_requests(cfg32, record=True)
+    launch.drain(ServeEngine(f32, cfg32, ctx, slots=4, max_len=128,
+                             device=dev), reqs)
+    worst = 0.0
+    for r in reqs:
+        alone = Request(r.rid, r.prompt, r.max_new, force=r.out, logits=[])
+        launch.drain(ServeEngine(f32, cfg32, ctx, slots=1, max_len=128,
+                                 device=dev), [alone])
+        check(len(alone.logits) == len(r.logits), "phase 10 (b) lengths")
+        for k, (a, b) in enumerate(zip(r.logits, alone.logits)):
+            e = rel_err(a, b)
+            check(e <= LM_F32_REL, f"phase 10 (b) request {r.rid} step {k}:"
+                  f" slots=4 against alone {e:.3g} > {LM_F32_REL}")
+            worst = max(worst, e)
+    out.update(f32_slot_rel_err=worst, f32_s=time.perf_counter() - t0)
+    del f32, masters
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_families(args) -> dict:
+    """(c) Each family's smoke config on the card and on the CPU with the
+    same weights (seed 0): `prefill` at batch 2 and sequence 8 (with the
+    family's frames or patches), 6 `decode_step`s at a (B,) position
+    vector from a zero cache, a 2-slot engine over 3 requests.  Logits and
+    caches within LM_SMOKE_TOL, the engine's tokens equal.  Returns each
+    family's largest absolute logit difference."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import (Ctx, cast_params, decode_step,
+                                    init_cache, init_params, prefill)
+    from repro_torch.serve.batcher import Request, ServeEngine
+
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+    ctx = Ctx()
+
+    def same(got, want, what):
+        if isinstance(got, (tuple, list)):
+            for g, w in zip(got, want):
+                same(g, w, what)
+        elif isinstance(got, dict):
+            for k in want:
+                same(got[k], want[k], f"{what}.{k}")
+        else:
+            torch.testing.assert_close(got.cpu(), want, msg=what,
+                                       **LM_SMOKE_TOL)
+
+    errs = {}
+    for arch in ARCHS:
+        cfg = smoke_config(arch)
+        host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = cast_params(host, cfg, dev)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8))}
+        if cfg.encoder_layers:
+            batch["frames"] = rng.normal(size=(2, 4, cfg.d_model)).astype(
+                np.float32)
+        if cfg.n_patches:
+            batch["patch_embeds"] = rng.normal(
+                size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        got, got_c = prefill(card, batch, cfg, ctx)
+        want, want_c = prefill(host, batch, cfg, ctx)
+        same(got, want, f"{arch} prefill logits")
+        same(got_c, want_c, f"{arch} prefill cache")
+        err = float((got.cpu() - want).abs().max())
+        s_enc = 8 if cfg.encoder_layers else 0
+        c_card = init_cache(cfg, 2, 16, s_enc, dev)
+        c_host = init_cache(cfg, 2, 16, s_enc, "cpu")
+        for t in range(6):
+            tok = rng.integers(0, cfg.vocab, 2)
+            pos = torch.tensor([t, t + 3])
+            got, c_card = decode_step(card, tok, c_card, pos, cfg, ctx)
+            want, c_host = decode_step(host, tok, c_host, pos, cfg, ctx)
+            same(got, want, f"{arch} decode {t} logits")
+            same(c_card, c_host, f"{arch} decode {t} cache")
+            err = max(err, float((got.cpu() - want).abs().max()))
+        prompts = [rng.integers(0, cfg.vocab, 3 + i) for i in range(3)]
+        outs = []
+        for params, d in ((card, dev), (host, "cpu")):
+            eng = ServeEngine(params, cfg, ctx, slots=2, max_len=32, device=d)
+            reqs = [Request(i, p, 4) for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            outs.append([r.out for r in reqs])
+        check(outs[0] == outs[1], f"{arch}: engine tokens {outs[0]} on the "
+              f"card against {outs[1]} on the CPU")
+        errs[arch] = err
+    return errs
+
+
+def lm_phase(args, card: str) -> dict:
+    t0 = time.perf_counter()
+    res = lm_full_width(args, card)
+    t1 = time.perf_counter()
+    res["family_max_abs_err"] = lm_families(args)
+    res["families_s"] = time.perf_counter() - t1
+    log(f"phase 10 (a) {res['arch']} ({res['params']:,} parameters, "
+        f"{res['layers']} layers, d_model {res['d_model']}, bf16) on "
+        f"{card}: decode tick with 4 live slots median "
+        f"{res['tick_ms_median']:.3f} ms, min {res['tick_ms_min']:.3f} ms "
+        f"({res['decode_ticks']} ticks); {res['tokens']} tokens in "
+        f"{res['ticks']} ticks, {res['tok_per_s']:.1f} tok/s; prefill of "
+        f"{LM_PREFILL} tokens at batch 1 median "
+        f"{res['prefill_ms_median']:.3f} ms, min {res['prefill_ms_min']:.3f}"
+        f" ms; peak device memory "
+        + (f"{res['peak_gib']:.3f} GiB" if "peak_gib" in res
+           else "not measured") + "; logits "
+        f"against the CPU's bf16 replay within {res['bf16_rel_err']:.3g} "
+        f"(limit {LM_BF16_REL}); weights {res['init_s']:.1f} s, replay "
+        f"{res['replay_s']:.1f} s")
+    if "decode_device_ms" in res:
+        log(f"phase 10 (a) profile on {card}: a 4-slot decode step "
+            f"{res['decode_device_ms']:.3f} device ms in "
+            f"{res['decode_kernels']:.0f} kernels (busy "
+            f"{res['decode_device_ms'] / res['tick_ms_median']:.1%} of the "
+            f"median tick); the {LM_PREFILL}-token prefill "
+            f"{res['prefill_device_ms']:.3f} device ms in "
+            f"{res['prefill_kernels']:.0f} kernels")
+    log(f"phase 10 (b) float32 on {card}: slots=4 against alone within "
+        f"{res['f32_slot_rel_err']:.3g} (limit {LM_F32_REL}), "
+        f"{res['f32_s']:.1f} s")
+    log(f"phase 10 (c) ten families at smoke width on {card}: card against "
+        f"CPU max abs logit err {max(res['family_max_abs_err'].values()):.3g}"
+        f", engine tokens equal, {res['families_s']:.1f} s")
+    log(json.dumps({"lm_serving": res}))
+    log(f"phase 10 (LM serving path): {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1778,12 +2071,14 @@ def main() -> int:
 
     dev = torch.device("cpu" if args.rehearse else "cuda")
     t_start = time.perf_counter()
+    card_name = "the CPU (rehearsal)"
     if not args.rehearse:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0]
         log(card)
+        card_name = card
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)}")
 
@@ -1901,6 +2196,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fuzz_phase(args)
     log(f"phase 9 (fuzzer): {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 10 -----------------------------------------------------------
+    lm_phase(args, card_name)
 
     # -- phase 6 ------------------------------------------------------------
     rows = []

@@ -3,6 +3,9 @@
 The layout mirrors `repro`: `relational/` (data, schemas, TPC-H queries),
 `core/` (expression and plan IR, the optimization passes, the static
 analysis, the physical operators and the staging of one program per
-query) and `kernels/` (hand-written CUDA kernels for Hopper, each beside
-its plain torch version).  The package imports torch and numpy, never JAX.
+query), `kernels/` (hand-written CUDA kernels for Hopper, each beside
+its plain torch version), `serve/` (the query server, and the language
+models' batching engine) and the language-model stack: `configs/`,
+`models/` and `launch/`.  The package imports torch and numpy, never
+JAX.
 """

@@ -91,13 +91,14 @@ STAGINGS = 0
 _STAGINGS_LOCK = threading.Lock()
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, what: str = "CompiledQuery") -> torch.device:
     """`None` means the CUDA card; there is no silent CPU path — a caller
-    who wants the CPU asks for it."""
+    who wants the CPU asks for it.  `what` names the caller in the
+    error."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CompiledQuery runs on CUDA by default and no CUDA device is "
+                f"{what} runs on CUDA by default and no CUDA device is "
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)

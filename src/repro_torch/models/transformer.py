@@ -1,0 +1,648 @@
+"""Composable block stacks for all assigned architecture families.
+
+The port of `repro/models/transformer.py`.  A model is `embed -> the
+pattern's blocks, repeat after repeat -> final norm -> lm head`.  `LM`
+is an `nn.Module` whose parameters are laid out as the reference's tree:
+`blocks[j]` is the block kind at position j of the config's `pattern`
+(`AttnBlock`, `MLABlock`, `MambaBlock`, `MLSTMBlock`, `SLSTMBlock`),
+and each of its tensors carries a leading axis over the pattern's
+repeats, so `named_parameters()` maps leaf for leaf onto the reference's
+tree (`blocks.0.mixer.w_q` is `params["blocks"][0]["mixer"]["w_q"]`).
+The reference scans the repeats with `lax.scan`; here a Python loop
+runs them.  Caches are the reference's too: a tuple over pattern
+positions of dicts of tensors with the same leading repeat axis.
+
+Modes: train/encode (full sequence), prefill (full sequence + emits KV /
+state caches), decode (single token + cache update).  `decode_step`
+takes `pos` as an int (every row at one position: the reference's
+computation) or as a (B,) tensor: each row then writes its K/V (or its
+MLA `ckv`/`kpe`) at its own position and attends over its own prefix.
+
+The reference casts the float32 masters to the compute dtype inside
+every step; the port casts once (`cast_params`) and the caller holds
+the copy.  The values are the same.  Gradients, remat and the training
+step wait for the training slice (ROADMAP Queue 1, item 7b).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.core.compile import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
+                                       mlp_init, rms_norm)
+from repro_torch.models.sharding import Ctx
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# parameters as modules
+# ---------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """A dict of tensors (nested dicts become submodules), registered as
+    parameters under the reference's names."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self, r: int | None = None) -> dict:
+        """The reference's dict; with `r`, repeat r of every leaf."""
+        out: dict[str, Any] = {}
+        for k, v in self._parameters.items():
+            out[k] = v if r is None else v[r]
+        for k, m in self._modules.items():
+            out[k] = m.tree(r)
+        return out
+
+
+def _cross_attn(x, p, ln, enc_kv, cfg):
+    """Cross attention over precomputed encoder K/V."""
+    b, s = x.shape[0], x.shape[1]
+    h, hd = cfg.n_heads, cfg.hd
+    hx = rms_norm(x, ln)
+    q = (hx @ p["w_q"]).reshape(b, s, h, hd)
+    k, v = enc_kv
+    out = A.blockwise_attention(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["w_o"]
+
+
+def _ffn(x, p, cfg, ctx, is_moe):
+    h2 = rms_norm(x, p["ln2"])
+    if is_moe:
+        return MOE.moe_ffn(h2, p["ffn"], cfg, ctx)
+    return mlp_apply(h2, p["ffn"], cfg.mlp)
+
+
+class Block(Params):
+    """One pattern position: norm, mixer, optional cross attention and
+    FFN, every tensor stacked over the pattern's repeats.  A subclass for
+    a mixer kind holds that mixer's init, cache layout, full-sequence
+    form and decode step."""
+
+    kind = ""
+
+    def __init__(self, tree: dict, is_moe: bool):
+        super().__init__(tree)
+        self.is_moe = is_moe
+
+    @classmethod
+    def init_tree(cls, gen, cfg, is_moe, dtype, device, lead,
+                  cross=False) -> dict:
+        ones = lambda: torch.ones(tuple(lead) + (cfg.d_model,), dtype=dtype,
+                                  device=device)
+        p: dict[str, Any] = {"ln1": ones(),
+                             "mixer": cls.mixer_init(gen, cfg, dtype, device,
+                                                     lead)}
+        if cross:
+            p["cross"] = AttnBlock.mixer_init(gen, cfg, dtype, device, lead)
+            p["ln_cross"] = ones()
+        if cls.kind in ("attn", "mla", "mamba") and (cfg.d_ff > 0 or is_moe):
+            p["ln2"] = ones()
+            p["ffn"] = (MOE.moe_init(gen, cfg, dtype, device, lead) if is_moe
+                        else mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                      dtype, device, lead))
+        return p
+
+    def forward(self, x, r: int, cfg, ctx, *, positions, mode, causal=True,
+                cache=None, pos=None, enc_out=None):
+        """Repeat r of this position.  Returns (x, new_cache_dict).  In
+        decode mode `pos` is a (B,) tensor of positions."""
+        p = self.tree(r)
+        h = rms_norm(x, p["ln1"])
+        if mode == "decode":
+            new_cache = dict(cache)
+            out, st = self.decode(h, p["mixer"], cfg, cache, pos)
+            new_cache.update(st)
+            x = x + out
+            if "cross" in p:
+                out = _cross_attn(x[:, None], p["cross"], p["ln_cross"],
+                                  (cache["ck"], cache["cv"]), cfg)[:, 0]
+                x = x + out
+            if "ffn" in p:
+                x = x + _ffn(x[:, None], p, cfg, ctx, self.is_moe)[:, 0]
+            return x, new_cache
+
+        # ---- full-sequence modes (train / encode / prefill) -----------------
+        out, new_cache = self.full(h, p["mixer"], cfg, ctx, positions, causal,
+                                   mode)
+        x = x + out
+        if "cross" in p and enc_out is not None:
+            shape = (x.shape[0], enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
+            k_enc = (enc_out @ p["cross"]["w_k"]).reshape(shape)
+            v_enc = (enc_out @ p["cross"]["w_v"]).reshape(shape)
+            x = x + _cross_attn(x, p["cross"], p["ln_cross"], (k_enc, v_enc),
+                                cfg)
+            if mode == "prefill":
+                new_cache["ck"], new_cache["cv"] = k_enc, v_enc
+        if "ffn" in p:
+            x = x + _ffn(x, p, cfg, ctx, self.is_moe)
+        return x, new_cache
+
+
+def _rope_frac(cfg):
+    return {"default": 1.0, "half": 0.5, "none": 0.0}[cfg.rope]
+
+
+def _ap(t, positions, cfg, fr):
+    return apply_rope(t, positions, theta=cfg.rope_theta, fraction=fr)
+
+
+def _qkv(x, p, cfg, positions):
+    b, s = x.shape[0], x.shape[1]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["w_q"] + (p["b_q"] if "b_q" in p else 0)
+    k = x @ p["w_k"] + (p["b_k"] if "b_k" in p else 0)
+    v = x @ p["w_v"] + (p["b_v"] if "b_v" in p else 0)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    fr = _rope_frac(cfg)
+    if fr > 0:
+        q = _ap(q, positions, cfg, fr)
+        k = _ap(k, positions, cfg, fr)
+    return q, k, v
+
+
+def _put_rows(cache, pos, new):
+    """`cache` (B, Smax, ...) with row b's entry at pos[b] set to new[b]."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    return cache.index_put((rows, pos), new.to(cache.dtype))
+
+
+class AttnBlock(Block):
+    kind = "attn"
+
+    @staticmethod
+    def mixer_init(gen, cfg, dtype, device, lead):
+        d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        p = {
+            "w_q": dense_init(gen, (d, h * hd), dtype, device, lead=lead),
+            "w_k": dense_init(gen, (d, hkv * hd), dtype, device, lead=lead),
+            "w_v": dense_init(gen, (d, hkv * hd), dtype, device, lead=lead),
+            "w_o": dense_init(gen, (h * hd, d), dtype, device, lead=lead),
+        }
+        if cfg.qkv_bias:
+            for name, width in (("b_q", h * hd), ("b_k", hkv * hd),
+                                ("b_v", hkv * hd)):
+                p[name] = torch.zeros(tuple(lead) + (width,), dtype=dtype,
+                                      device=device)
+        return p
+
+    @staticmethod
+    def cache_struct(cfg, batch, smax, dtype):
+        shape = (batch, smax, cfg.n_kv_heads, cfg.hd)
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+
+    @staticmethod
+    def full(x, p, cfg, ctx, positions, causal, mode):
+        window = cfg.window if cfg.attn == "swa" else None
+        q, k, v = _qkv(x, p, cfg, positions)
+        out = A.blockwise_attention(
+            q, k, v, causal=causal, window=window,
+            unroll=cfg.unroll and cfg.attn_impl == "naive")
+        out = out.reshape(x.shape[0], x.shape[1], -1) @ p["w_o"]
+        return out, ({"k": k, "v": v} if mode == "prefill" else {})
+
+    @staticmethod
+    def decode(x, p, cfg, cache, pos):
+        b = x.shape[0]
+        q, k, v = _qkv(x[:, None], p, cfg, pos[:, None])
+        k_cache = _put_rows(cache["k"], pos, k[:, 0])
+        v_cache = _put_rows(cache["v"], pos, v[:, 0])
+        window = cfg.window if cfg.attn == "swa" else None
+        out = A.decode_attention(q[:, 0], k_cache, v_cache, pos + 1,
+                                 window=window)
+        out = out.reshape(b, -1) @ p["w_o"]
+        return out, {"k": k_cache, "v": v_cache}
+
+
+def _mla_proj_q(x, p, cfg):
+    b, s = x.shape[0], x.shape[1]
+    h, nope, rd = cfg.n_heads, cfg.hd, cfg.rope_dim
+    cq = rms_norm(x @ p["w_dq"], p["q_ln"])
+    q = (cq @ p["w_uq"]).reshape(b, s, h, nope + rd)
+    return q[..., :nope], q[..., nope:]
+
+
+class MLABlock(Block):
+    kind = "mla"
+
+    @staticmethod
+    def mixer_init(gen, cfg, dtype, device, lead):
+        d, h = cfg.d_model, cfg.n_heads
+        nope, rd, dv = cfg.hd, cfg.rope_dim, cfg.v_head_dim
+        return {
+            "w_dq": dense_init(gen, (d, cfg.q_lora), dtype, device,
+                               lead=lead),
+            "q_ln": torch.ones(tuple(lead) + (cfg.q_lora,), dtype=dtype,
+                               device=device),
+            "w_uq": dense_init(gen, (cfg.q_lora, h * (nope + rd)), dtype,
+                               device, lead=lead),
+            "w_dkv": dense_init(gen, (d, cfg.kv_lora + rd), dtype, device,
+                                lead=lead),
+            "kv_ln": torch.ones(tuple(lead) + (cfg.kv_lora,), dtype=dtype,
+                                device=device),
+            "w_uk": dense_init(gen, (cfg.kv_lora, h, nope), dtype, device,
+                               lead=lead),
+            "w_uv": dense_init(gen, (cfg.kv_lora, h, dv), dtype, device,
+                               lead=lead),
+            "w_o": dense_init(gen, (h * dv, d), dtype, device, lead=lead),
+        }
+
+    @staticmethod
+    def cache_struct(cfg, batch, smax, dtype):
+        return {"ckv": ((batch, smax, cfg.kv_lora), dtype),
+                "kpe": ((batch, smax, cfg.rope_dim), dtype)}
+
+    @staticmethod
+    def full(x, p, cfg, ctx, positions, causal, mode):
+        b, s = x.shape[0], x.shape[1]
+        h, rd = cfg.n_heads, cfg.rope_dim
+        q_nope, q_pe = _mla_proj_q(x, p, cfg)
+        q_pe = _ap(q_pe, positions, cfg, 1.0)
+        ckv_full = x @ p["w_dkv"]
+        ckv, kpe = ckv_full[..., :cfg.kv_lora], ckv_full[..., cfg.kv_lora:]
+        ckv_n = rms_norm(ckv, p["kv_ln"])
+        kpe = _ap(kpe[:, :, None, :], positions, cfg, 1.0)[:, :, 0]
+        k_nope = torch.einsum("bsl,lhn->bshn", ckv_n, p["w_uk"])
+        v = torch.einsum("bsl,lhn->bshn", ckv_n, p["w_uv"])
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, kpe[:, :, None].expand(b, s, h, rd)], dim=-1)
+        out = A.blockwise_attention(
+            q, k, v, causal=causal,
+            unroll=cfg.unroll and cfg.attn_impl == "naive")
+        out = out.reshape(b, s, -1) @ p["w_o"]
+        return out, ({"ckv": ckv_n, "kpe": kpe} if mode == "prefill"
+                     else {})
+
+    @staticmethod
+    def decode(x, p, cfg, cache, pos):
+        b = x.shape[0]
+        nope, rd = cfg.hd, cfg.rope_dim
+        positions = pos[:, None]
+        q_nope, q_pe = _mla_proj_q(x[:, None], p, cfg)
+        q_pe = _ap(q_pe, positions, cfg, 1.0)[:, 0]
+        q_nope = q_nope[:, 0]
+        ckv_full = x @ p["w_dkv"]
+        ckv, kpe = ckv_full[..., :cfg.kv_lora], ckv_full[..., cfg.kv_lora:]
+        ckv_n = rms_norm(ckv, p["kv_ln"])
+        kpe = _ap(kpe[:, None, None, :], positions, cfg, 1.0)[:, 0, 0]
+        ckv_cache = _put_rows(cache["ckv"], pos, ckv_n)
+        kpe_cache = _put_rows(cache["kpe"], pos, kpe)
+        # absorbed attention against the compressed cache
+        q_abs = torch.einsum("bhn,lhn->bhl", q_nope.float(),
+                             p["w_uk"].float())
+        w = A.mla_decode_scores(q_abs, q_pe.float(), ckv_cache.float(),
+                                kpe_cache.float(), pos + 1,
+                                (nope + rd) ** -0.5)
+        out_c = torch.einsum("bhk,bkl->bhl", w, ckv_cache.float())
+        out = torch.einsum("bhl,lhn->bhn", out_c, p["w_uv"].float())
+        out = out.reshape(b, -1).to(x.dtype) @ p["w_o"]
+        return out, {"ckv": ckv_cache, "kpe": kpe_cache}
+
+
+class MambaBlock(Block):
+    kind = "mamba"
+    mixer_init = staticmethod(SSM.mamba_init)
+
+    @staticmethod
+    def cache_struct(cfg, batch, smax, dtype):
+        di = cfg.ssm_expand * cfg.d_model
+        return {"h": ((batch, di, cfg.ssm_state), torch.float32),
+                "conv": ((batch, cfg.ssm_conv - 1, di), dtype)}
+
+    @staticmethod
+    def full(x, p, cfg, ctx, positions, causal, mode):
+        out = SSM.mamba_forward(x, p, cfg)
+        # prefill hands decode the reference's placeholder state (the
+        # zero state, not the state after the prompt; ROADMAP Queue 3)
+        return out, (SSM.mamba_decode_init(cfg, x.shape[0], x.dtype,
+                                           x.device)
+                     if mode == "prefill" else {})
+
+    @staticmethod
+    def decode(x, p, cfg, cache, pos):
+        return SSM.mamba_decode(x, {"h": cache["h"], "conv": cache["conv"]},
+                                p, cfg)
+
+
+class MLSTMBlock(Block):
+    kind = "mlstm"
+    mixer_init = staticmethod(XL.mlstm_init)
+
+    @staticmethod
+    def cache_struct(cfg, batch, smax, dtype):
+        h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+        return {"c": ((batch, h, hd, hd), torch.float32),
+                "n": ((batch, h, hd), torch.float32),
+                "m": ((batch, h), torch.float32)}
+
+    @staticmethod
+    def full(x, p, cfg, ctx, positions, causal, mode):
+        out = XL.mlstm_forward(x, p, cfg)
+        return out, (XL.mlstm_decode_init(cfg, x.shape[0], p, x.device)
+                     if mode == "prefill" else {})
+
+    @staticmethod
+    def decode(x, p, cfg, cache, pos):
+        return XL.mlstm_decode(x, {k: cache[k] for k in ("c", "n", "m")},
+                               p, cfg)
+
+
+class SLSTMBlock(Block):
+    kind = "slstm"
+    mixer_init = staticmethod(XL.slstm_init)
+
+    @staticmethod
+    def cache_struct(cfg, batch, smax, dtype):
+        f32 = ((batch, cfg.d_model), torch.float32)
+        return {"c": f32, "n": f32, "m": f32, "h": f32}
+
+    @staticmethod
+    def full(x, p, cfg, ctx, positions, causal, mode):
+        out = XL.slstm_forward(x, p, cfg)
+        return out, (XL.slstm_decode_init(cfg, x.shape[0], p, x.device)
+                     if mode == "prefill" else {})
+
+    @staticmethod
+    def decode(x, p, cfg, cache, pos):
+        return XL.slstm_decode(x, {k: cache[k] for k in ("c", "n", "m", "h")},
+                               p, cfg)
+
+
+BLOCKS: dict[str, type[Block]] = {
+    b.kind: b for b in (AttnBlock, MLABlock, MambaBlock, MLSTMBlock,
+                        SLSTMBlock)}
+
+
+def _block_class(kind: str) -> type[Block]:
+    if kind not in BLOCKS:
+        raise ValueError(kind)
+    return BLOCKS[kind]
+
+
+class Encoder(nn.Module):
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.blocks = nn.ModuleList([AttnBlock(t, False)
+                                     for t in tree["blocks"]])
+        self.final_norm = nn.Parameter(tree["final_norm"],
+                                       requires_grad=False)
+
+
+class LM(nn.Module):
+    """The model's parameters, as modules, in the reference's layout.
+    `tree()` gives the reference's parameter tree back."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        _, _, moe_flags = _pattern_info(cfg)
+        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
+        self.final_norm = nn.Parameter(tree["final_norm"],
+                                       requires_grad=False)
+        if "lm_head" in tree:
+            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+        self.blocks = nn.ModuleList([
+            _block_class(kind)(tree["blocks"][j], moe_flags[j])
+            for j, kind in enumerate(cfg.pattern)])
+        if "encoder" in tree:
+            self.encoder = Encoder(tree["encoder"])
+
+    def tree(self) -> dict:
+        out: dict[str, Any] = {"embed": self.embed,
+                               "final_norm": self.final_norm,
+                               "blocks": tuple(b.tree() for b in self.blocks)}
+        if hasattr(self, "lm_head"):
+            out["lm_head"] = self.lm_head
+        if hasattr(self, "encoder"):
+            out["encoder"] = {
+                "blocks": tuple(b.tree() for b in self.encoder.blocks),
+                "final_norm": self.encoder.final_norm}
+        return out
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _pattern_info(cfg: ModelConfig):
+    plen = len(cfg.pattern)
+    if cfg.n_layers % plen:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not tile "
+                         f"a pattern of {plen}")
+    reps = cfg.n_layers // plen
+    moe_flags = [cfg.is_moe_layer(j) for j in range(plen)]
+    return plen, reps, moe_flags
+
+
+def init_tree(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """A random parameter tree with the reference's shapes, dtypes and
+    scales, drawn from `gen`."""
+    dtype = dtype_of(cfg.param_dtype)
+    plen, reps, moe_flags = _pattern_info(cfg)
+    cross = cfg.encoder_layers > 0
+    tree: dict[str, Any] = {
+        "blocks": tuple(
+            _block_class(cfg.pattern[j]).init_tree(
+                gen, cfg, moe_flags[j], dtype, device, (reps,), cross=cross)
+            for j in range(plen)),
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype,
+                                     device)
+    if cfg.encoder_layers > 0:
+        tree["encoder"] = {
+            "blocks": (AttnBlock.init_tree(gen, cfg, False, dtype, device,
+                                           (cfg.encoder_layers,)),),
+            "final_norm": torch.ones(cfg.d_model, dtype=dtype,
+                                     device=device),
+        }
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# cache structure
+# ---------------------------------------------------------------------------
+
+def cache_struct(cfg: ModelConfig, batch: int, smax: int,
+                 s_enc: int = 0) -> tuple:
+    """A tuple over pattern positions of dicts of (shape, dtype): the
+    decode cache, with the leading repeat axis."""
+    plen, reps, _ = _pattern_info(cfg)
+    dtype = dtype_of(cfg.dtype)
+    out = []
+    for j in range(plen):
+        c = _block_class(cfg.pattern[j]).cache_struct(cfg, batch, smax, dtype)
+        if cfg.encoder_layers > 0:
+            shape = (batch, s_enc, cfg.n_kv_heads, cfg.hd)
+            c["ck"], c["cv"] = (shape, dtype), (shape, dtype)
+        out.append({k: ((reps,) + shape, dt) for k, (shape, dt) in c.items()})
+    return tuple(out)
+
+
+def init_cache(cfg: ModelConfig, batch: int, smax: int, s_enc: int = 0,
+               device=None):
+    """The zero decode cache of `cache_struct`, on `device` (default: the
+    CUDA card, which raises when there is none)."""
+    device = resolve_device(device, "init_cache")
+    return tuple({k: torch.zeros(shape, dtype=dt, device=device)
+                  for k, (shape, dt) in c.items()}
+                 for c in cache_struct(cfg, batch, smax, s_enc))
+
+
+# ---------------------------------------------------------------------------
+# stacks
+# ---------------------------------------------------------------------------
+
+def run_stack(x, blocks, cfg: ModelConfig, ctx: Ctx, *, positions, mode,
+              causal=True, caches=None, pos=None, enc_out=None):
+    """Every repeat of the blocks' pattern in turn (the reference's
+    `lax.scan` over repeats).  Returns x and, for prefill and decode, the
+    new caches stacked over repeats."""
+    reps = blocks[0].ln1.shape[0]
+    outs = []
+    for r in range(reps):
+        new = []
+        for j, blk in enumerate(blocks):
+            cj = ({k: v[r] for k, v in caches[j].items()}
+                  if caches is not None else None)
+            x, nc = blk(x, r, cfg, ctx, positions=positions, mode=mode,
+                        causal=causal, cache=cj, pos=pos, enc_out=enc_out)
+            new.append(nc)
+        outs.append(new)
+    if caches is None and mode != "prefill":
+        return x, None
+    return x, tuple({k: torch.stack([o[j][k] for o in outs])
+                     for k in outs[0][j]} for j in range(len(blocks)))
+
+
+def _embed(params, tokens, cfg, ctx: Ctx, batch_extra=None):
+    x = params.embed[tokens].to(dtype_of(cfg.dtype))
+    if batch_extra is not None:       # vlm patches / prepended embeddings
+        x = torch.cat([batch_extra.to(x.dtype), x], dim=1)
+    return ctx.constraint(x)
+
+
+def _logits(params, x, cfg, ctx: Ctx):
+    x = rms_norm(x, params.final_norm)
+    head = params.lm_head if hasattr(params, "lm_head") else params.embed.T
+    return ctx.constraint(x @ head)
+
+
+def _encode(params, frames, cfg, ctx):
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(dtype_of(cfg.dtype))
+    x, _ = run_stack(x, params.encoder.blocks, cfg, ctx, positions=positions,
+                     mode="encode", causal=False)
+    return rms_norm(x, params.encoder.final_norm)
+
+
+def cast_params(params: LM, cfg: ModelConfig, device=None) -> LM:
+    """The model with every float tensor in the compute dtype, on
+    `device` (default: the model's).  The model itself when it already
+    is; else a new copy, which the caller holds for every step."""
+    dt = dtype_of(cfg.dtype)
+    device = torch.device(device) if device is not None \
+        else params.embed.device
+    if all(p.dtype == dt and p.device == device
+           for p in params.parameters()):
+        return params
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(conv(v) for v in t)
+        return t.detach().to(device=device, dtype=dt)
+
+    return LM(cfg, conv(params.tree()))
+
+
+def _batch_on(batch, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def forward_train(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
+    """batch: {'tokens': (B,S) ints, optional 'patch_embeds', 'frames'}.
+    Returns the logits (B, S[+patches], V); the gradient waits for the
+    training slice."""
+    params = cast_params(params, cfg)
+    batch = _batch_on(batch, params.embed.device)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        enc_out = _encode(params, batch["frames"], cfg, ctx)
+    x = _embed(params, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = run_stack(x, params.blocks, cfg, ctx, positions=positions,
+                     mode="train", causal=True, enc_out=enc_out)
+    return _logits(params, x, cfg, ctx)
+
+
+def prefill(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
+    """Returns the last position's logits (B, V) and the caches."""
+    params = cast_params(params, cfg)
+    batch = _batch_on(batch, params.embed.device)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        enc_out = _encode(params, batch["frames"], cfg, ctx)
+    x = _embed(params, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, caches = run_stack(x, params.blocks, cfg, ctx, positions=positions,
+                          mode="prefill", causal=True, enc_out=enc_out)
+    logits = _logits(params, x[:, -1:], cfg, ctx)
+    return logits[:, 0], caches
+
+
+def _cache_len(cache) -> int | None:
+    """The sequence length of the first KV (or MLA) cache, if any."""
+    for c in cache:
+        for k in ("k", "ckv"):
+            if k in c:
+                return c[k].shape[2]
+    return None
+
+
+def positions_of(pos, batch: int, device, smax: int | None = None):
+    """`pos` (an int, or one position a row) as a (B,) int64 tensor on
+    `device`.  A position given on the host is checked against `smax`."""
+    t = torch.as_tensor(pos, dtype=torch.int64)
+    if t.device.type == "cpu" and smax is not None and t.numel() and (
+            int(t.min()) < 0 or int(t.max()) >= smax):
+        raise IndexError(f"decode position {pos} outside a cache of {smax}")
+    return t.to(device).expand(batch) if t.ndim == 0 else t.to(device)
+
+
+def decode_step(params: LM, token, cache, pos, cfg: ModelConfig, ctx: Ctx):
+    """token: (B,) ints; pos: an int, or a (B,) tensor of each row's
+    position; cache: from `init_cache` (or `prefill`).  Returns (logits
+    (B, V), new cache); the given cache is not changed."""
+    params = cast_params(params, cfg)
+    device = params.embed.device
+    token = torch.as_tensor(token, device=device)
+    pos = positions_of(pos, token.shape[0], device, _cache_len(cache))
+    x = params.embed[token].to(dtype_of(cfg.dtype))
+    x, new_cache = run_stack(x, params.blocks, cfg, ctx, positions=None,
+                             mode="decode", causal=True, caches=cache,
+                             pos=pos)
+    logits = _logits(params, x[:, None], cfg, ctx)[:, 0]
+    return logits, new_cache

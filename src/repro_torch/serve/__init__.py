@@ -2,4 +2,5 @@
 (coalescing windows, in-flight compile dedup, admission, deadlines,
 retry, the degradation ladder, tiered serving), `admission` (its
 controller, typed errors and telemetry) and `chaos` (the seeded fault
-harness)."""
+harness); `batcher` is the language models' continuous-batching
+engine."""

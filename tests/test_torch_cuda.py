@@ -810,3 +810,72 @@ def test_sharded_query_on_card_matches_unsharded(cuda, sdb, two_slots,
     assert torch.equal(mask0, mask1.to(mask0.device))
     for k in out0:
         assert torch.equal(out0[k], out1[k].to(out0[k].device)), k
+
+
+# ---------------------------------------------------------------------------
+# the language-model serving path: each family on the card against the CPU
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import ARCHS as LM_ARCHS  # noqa: E402
+
+
+def _lm_close(got, want, what):
+    """Card against CPU, float32 smoke widths: rtol 1e-4, atol 1e-5 (the
+    CPU tests' tolerance of the port against the reference)."""
+    if isinstance(got, (tuple, list)):
+        for g, w in zip(got, want):
+            _lm_close(g, w, what)
+    elif isinstance(got, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _lm_close(got[k], want[k], f"{what}.{k}")
+    else:
+        assert got.device.type == "cuda", what
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5,
+                                   msg=what)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_family_on_card_matches_cpu(cuda, arch):
+    """A family's smoke config, one set of weights on both devices:
+    prefill (batch 2, sequence 8, with frames or patches), 6 decode steps
+    at a (B,) position vector, and a 2-slot engine over 3 requests, whose
+    tokens must be equal."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import (Ctx, cast_params, decode_step,
+                                    init_cache, init_params, prefill)
+    from repro_torch.serve.batcher import Request, ServeEngine
+
+    cfg = smoke_config(arch)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = cast_params(host, cfg, cuda)
+    ctx = Ctx()
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8))}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(size=(2, 4, cfg.d_model)).astype(
+            np.float32)
+    if cfg.n_patches:
+        batch["patch_embeds"] = rng.normal(
+            size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    _lm_close(prefill(card, batch, cfg, ctx), prefill(host, batch, cfg, ctx),
+              f"{arch} prefill")
+    s_enc = 8 if cfg.encoder_layers else 0
+    c_card = init_cache(cfg, 2, 16, s_enc, cuda)
+    c_host = init_cache(cfg, 2, 16, s_enc, "cpu")
+    for t in range(6):
+        tok = rng.integers(0, cfg.vocab, 2)
+        pos = torch.tensor([2 * t, t + 1])
+        got, c_card = decode_step(card, tok, c_card, pos, cfg, ctx)
+        want, c_host = decode_step(host, tok, c_host, pos, cfg, ctx)
+        _lm_close((got, c_card), (want, c_host), f"{arch} decode {t}")
+    prompts = [rng.integers(0, cfg.vocab, 2 + 2 * i) for i in range(3)]
+    outs = []
+    for params, dev in ((card, cuda), (host, "cpu")):
+        eng = ServeEngine(params, cfg, ctx, slots=2, max_len=32, device=dev)
+        reqs = [Request(i, p, 5) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
