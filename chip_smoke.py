@@ -121,6 +121,30 @@ result line):
      2-slot engine over 3 requests, logits and caches within
      LM_SMOKE_TOL, the engine's tokens equal.  Prints an
      `{"lm_serving": ...}` line;
+  11. the training path (no kernel of the port's: the reference computes
+     it in plain JAX), TF32 off: (a) Qwen1.5-0.5B at full width in
+     float32, weights from `torch.Generator().manual_seed(0)` on the CPU,
+     one loss and gradient at batch 2 x 64 from the pipeline on the card
+     and on the CPU from the same masters (loss TRAIN_LOSS_RTOL, global
+     norm TRAIN_NORM_RTOL, every leaf TRAIN_LEAF_REL of its largest
+     |grad|); (b) the training launcher's run at full width in bf16 (30
+     steps of 8 x 64, `AdamConfig(warmup=10)`, async checkpoints every 20
+     into a temporary directory, removed after) through `TrainDriver`,
+     with a failure injected once at step 25: one recovery, finite
+     losses, the replayed steps 20 to 24 within TRAIN_REPLAY_RTOL of
+     their first pass, step 0's loss within TRAIN_BF16_LOSS_REL of a
+     float32 forward of the same weights and batch; the step's median
+     and minimum ms over steps 2 to 19, tok/s, one step's device ms and
+     kernels (profiler), peak device memory, the checkpoint's snapshot,
+     write and restore seconds and the step's bound
+     (`launch/roofline.py`: 6 N D over 989 TFLOP/s, Adam's 28 bytes and
+     the bf16 copy's 6 a parameter over 3.35 TB/s); (c) the ten families
+     at smoke width, float32, card against CPU with the same weights:
+     loss and gradients, then two `train_step`s (the second with
+     accum=2 and compression on), params, m, v and ef within rtol 1e-4,
+     atol 1e-5 (`repro_torch.train.compare`, with the exceptions it
+     derives).  Prints an
+     `{"lm_training": ...}` line;
   6. print one `{"kernels": [...]}` line (`launches` from phase 5,
      `serving_launches` from phase 7, `sharded_launches` from phase 8's
      opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
@@ -142,8 +166,8 @@ query answers to the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
 
 `--rehearse` runs the same phases on the CPU (plain versions only, no
 build, no launch checks) at `--sf`, to test the script without a card;
-phase 10 there runs the smoke widths only (Qwen at 2 layers, in bf16
-for (a)); it prints no result line.  On the card the script runs at SF 1, seed 0
+phases 10 and 11 there run the smoke widths only (Qwen at 2 layers, in
+bf16 for phase 10 (a)); it prints no result line.  On the card the script runs at SF 1, seed 0
 only, the size its launch table holds.
 """
 from __future__ import annotations
@@ -422,12 +446,15 @@ def profile_call(fn, calls: int = 10) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     memsets = [e for e in dev if e.key.startswith("Memset")]
     kernels = [e for e in dev if not e.key.startswith(("Memset", "Memcpy"))]
+    by_name: dict = {}
+    for e in dev:                 # names that share 60 characters add up
+        by_name[e.key[:60]] = (by_name.get(e.key[:60], 0.0)
+                               + e.self_device_time_total / 1e3 / calls)
     return {"device_ms": sum(e.self_device_time_total for e in dev)
             / 1e3 / calls,
             "kernels_per_call": sum(e.count for e in kernels) / calls,
             "memsets_per_call": sum(e.count for e in memsets) / calls,
-            "device_kernels": {e.key[:60]: e.self_device_time_total / 1e3
-                               / calls for e in dev}}
+            "device_kernels": by_name}
 
 
 def max_err(got, want, what: str, exact: bool = False) -> float:
@@ -2042,6 +2069,380 @@ def lm_phase(args, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1_5_0_5b"      # the default of the training launcher
+TRAIN_FAIL_AT = 25               # (b): the step whose first try raises
+TRAIN_GRAD_BATCH = 2             # (a): batch 2 x the launcher's sequence 64
+# (a) card against CPU, float32 (TF32 off), same masters and batch: the
+# loss, the global gradient norm, each leaf against its largest |grad|
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_LEAF_REL = 1e-3
+# (b) a replayed step's loss against its first pass (restored state, the
+# same batch; the card's scatter-adds order their sums freely), and step
+# 0's bf16 loss against a float32 forward of the same weights and batch
+TRAIN_REPLAY_RTOL = 1e-3
+TRAIN_BF16_LOSS_REL = 1e-2
+# (c) card against CPU at smoke widths, float32: the CPU tests' tolerances
+# of the port against the reference (tests/test_torch_train.py), with
+# the exceptions `repro_torch.train.compare` derives (Adam's undetermined
+# directions, int8 roundings on a boundary)
+# the step's bound: model_flops over the bf16 peak; for memory, Adam's 28
+# bytes a parameter (reads p, g, m, v; writes p, m, v; float32) and the
+# bf16 copy's reads in the forward, the recompute and the backward (6)
+TRAIN_OPT_BYTES, TRAIN_WEIGHT_BYTES = 28, 6
+
+
+# a kernel's kind by its name (the profiler's, cut to 60 characters)
+KERNEL_KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                ("copy", ("Memcpy", "Memset", "copy")),
+                ("index", ("index", "scatter", "gather", "embedding")),
+                ("reduce", ("reduce", "softmax", "norm")),
+                ("elementwise", ("elementwise",)))
+
+
+def kernel_kinds(device_kernels: dict) -> dict:
+    """Device ms a call summed by kind of kernel (KERNEL_KINDS, first
+    match; "other" for the rest)."""
+    out: dict = {}
+    for name, ms in device_kernels.items():
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(s in name for s in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
+
+
+def train_full_grads(args, card: str) -> dict:
+    """(a) Qwen1.5-0.5B at full width in float32: one loss and gradient
+    at batch 2 x 64 from the pipeline, on the card (TF32 off) and on the
+    CPU from the same masters (seed 0)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import Ctx, cast_params, init_params
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.models.tree import leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH) if cuda
+                              else smoke_config(TRAIN_ARCH), dtype="float32")
+    ctx = Ctx()
+    t0 = time.perf_counter()
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {"params": sum(p.numel() for p in masters.parameters()),
+           "init_s": time.perf_counter() - t0}
+    batch = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_GRAD_BATCH,
+                          seq_len=64).batch_at(0)
+    card_m = cast_params(masters, cfg, dev)
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grad(card_m, batch, cfg, ctx)
+    loss_c = float(loss_c)
+    out["card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, grads_h = value_and_grad(masters, batch, cfg, ctx)
+    out["cpu_s"] = time.perf_counter() - t0
+    loss_h = float(loss_h)
+    norm_c, norm_h = float(global_norm(grads_c)), float(global_norm(grads_h))
+    out.update(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c,
+               grad_norm_cpu=norm_h)
+    check(abs(loss_c - loss_h) <= TRAIN_LOSS_RTOL * abs(loss_h),
+          f"phase 11 (a): loss {loss_c} on the card, {loss_h} on the CPU")
+    check(abs(norm_c - norm_h) <= TRAIN_NORM_RTOL * norm_h,
+          f"phase 11 (a): grad norm {norm_c} on the card, {norm_h} on the "
+          "CPU")
+    worst = 0.0
+    for g, w in zip(leaves(grads_c), leaves(grads_h), strict=True):
+        g = g.cpu()
+        check(bool(g.isfinite().all()), "phase 11 (a): non-finite gradient")
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        check(err <= TRAIN_LEAF_REL * scale, f"phase 11 (a): a gradient "
+              f"leaf off by {err:.3g} at scale {scale:.3g}")
+        worst = max(worst, err / scale)
+    out["leaf_rel_err"] = worst
+    del card_m, grads_c
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_launcher_run(args, card: str) -> dict:
+    """(b) the launcher's run at full width in bf16 (30 steps, batch 8,
+    sequence 64, `AdamConfig(warmup=10)`, async checkpoints every 20 into
+    a temporary directory) through `TrainDriver`, with a failure injected
+    once at step TRAIN_FAIL_AT; then one step under the profiler, a
+    restore of the checkpoint, and the step's bound."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import latest_step, restore
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as launch
+    from repro_torch.models import Ctx
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import AdamConfig, adam_update
+    from repro_torch.train.train_step import loss_fn, value_and_grad
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    largs = launch.parse_args([])
+    fired = []
+
+    def fail_hook(step):
+        if step == TRAIN_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("phase 11: injected failure")
+
+    tmp = tempfile.mkdtemp(prefix="train-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        cfg, drv = launch.make_driver(largs, dev, tmp, fail_hook)
+        out = {"arch": cfg.name, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab,
+               "dtype": cfg.dtype, "card": card,
+               "steps": largs.steps, "batch": largs.batch, "seq": largs.seq,
+               "params": sum(p.numel() for p in drv.state.params.parameters()),
+               "init_s": time.perf_counter() - t0}
+        # step 0's batch through a float32 forward of the same weights
+        batch0 = drv.pipeline.batch_at(0)
+        with torch.no_grad():
+            loss32 = float(loss_fn(drv.state.params, batch0,
+                                   dataclasses.replace(cfg, dtype="float32"),
+                                   Ctx()))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        drv.run(largs.steps)
+        out["run_s"] = time.perf_counter() - t0
+        if cuda:
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log_ = drv.metrics_log
+        check(drv.recoveries == 1 and fired == [TRAIN_FAIL_AT],
+              f"phase 11 (b): {drv.recoveries} recoveries")
+        check(all(math.isfinite(m["loss"]) for m in log_),
+              "phase 11 (b): a non-finite loss")
+        ck = 20
+        check(latest_step(tmp) == ck, f"phase 11 (b): latest checkpoint "
+              f"{latest_step(tmp)}")
+        first = {m["step"]: m["loss"] for m in log_[:TRAIN_FAIL_AT]}
+        replay = {m["step"]: m["loss"] for m in log_[TRAIN_FAIL_AT:]}
+        check(sorted(first) == list(range(TRAIN_FAIL_AT))
+              and sorted(replay) == list(range(ck, largs.steps)),
+              "phase 11 (b): the steps run are not 0..24 then 20..29")
+        worst = 0.0
+        for s in range(ck, TRAIN_FAIL_AT):
+            e = abs(replay[s] - first[s]) / abs(first[s])
+            check(e <= TRAIN_REPLAY_RTOL, f"phase 11 (b): step {s} replayed "
+                  f"{replay[s]} against {first[s]}")
+            worst = max(worst, e)
+        e0 = abs(first[0] - loss32) / abs(loss32)
+        check(e0 <= TRAIN_BF16_LOSS_REL, f"phase 11 (b): step 0's {cfg.dtype}"
+              f" loss {first[0]} against float32 {loss32}")
+        steady = [m["dt"] * 1e3 for m in log_[2:ck]]
+        tokens = largs.batch * largs.seq
+        out.update(
+            losses=[m["loss"] for m in log_], replay_rel_err=worst,
+            loss_step0=first[0], loss_step0_f32=loss32,
+            step0_rel_err=e0, recoveries=drv.recoveries,
+            stragglers=len(drv.straggler.slow_steps),
+            step_ms_median=statistics.median(steady),
+            step_ms_min=min(steady),
+            tok_per_s=tokens / (statistics.median(steady) / 1e3),
+            ckpt_snapshot_s=drv.ckpt.snapshot_s,
+            ckpt_write_s=drv.ckpt.write_s,
+            ckpt_bytes=sum(f.stat().st_size
+                           for f in Path(tmp).rglob("*") if f.is_file()))
+        t0 = time.perf_counter()
+        back = restore(tmp, ck, drv.state, device=dev)
+        float(back.opt.step)                  # waits for the copies
+        out["ckpt_restore_s"] = time.perf_counter() - t0
+        del back
+        if cuda:
+            batch = drv.pipeline.batch_at(largs.steps)
+            prof = profile_call(lambda: drv.step_fn(drv.state, batch),
+                                calls=2)
+            out.update(step_device_ms=prof["device_ms"],
+                       step_kernels=prof["kernels_per_call"],
+                       step_busy=prof["device_ms"] / out["step_ms_median"],
+                       step_device_ms_by_kind=kernel_kinds(
+                           prof["device_kernels"]))
+            # the optimizer's share: Adam alone on this step's gradients
+            _, grads = value_and_grad(drv.state.params, batch, cfg, Ctx())
+            st = drv.state
+            prof = profile_call(lambda: adam_update(
+                grads, st.opt, st.params, AdamConfig(warmup=10)), calls=2)
+            out.update(adam_device_ms=prof["device_ms"],
+                       adam_kernels=prof["kernels_per_call"],
+                       adam_host_ms=host_ms(lambda: adam_update(
+                           grads, st.opt, st.params, AdamConfig(warmup=10)),
+                           calls=5))
+            del grads, st
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shape = ShapeConfig("train_launcher", "train", largs.seq, largs.batch)
+    flops = roofline.model_flops(cfg, shape)
+    mem = (TRAIN_OPT_BYTES + TRAIN_WEIGHT_BYTES) * out["params"]
+    out.update(model_flops=flops, bound_compute_ms=flops / roofline.PEAK_FLOPS
+               * 1e3, bound_bytes=mem,
+               bound_memory_ms=mem / roofline.HBM_BW * 1e3)
+    out["bound_ms"] = max(out["bound_compute_ms"], out["bound_memory_ms"])
+    out["bound_by"] = ("operations" if out["bound_compute_ms"]
+                       >= out["bound_memory_ms"] else "bytes")
+    del drv
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def accum_grad_scale(params, batch, cfg, ctx) -> list:
+    """Each leaf's largest |gradient| of an accum=2 step on `batch` (its
+    two rows), as the step's compression sees it (error feedback 0)."""
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.models.tree import leaves
+
+    halves = [leaves(value_and_grad(params, {k: v[i:i + 1]
+                                             for k, v in batch.items()},
+                                    cfg, ctx)[1]) for i in range(2)]
+    return [float(((a + b) / 2).abs().max()) for a, b in zip(*halves)]
+
+
+def train_families(args) -> dict:
+    """(c) Each family's smoke config on the card and on the CPU with the
+    same weights (seed 0), float32: the loss and gradients at batch 2 x
+    16, then two `train_step`s (the second with accum=2 and compression
+    on, from the first's state), compared by `compare_states` (the
+    second with the CPU's gradient scale).  Returns each family's largest
+    gradient error (over its leaf's scale), its elements rounded apart
+    and its params of undetermined Adam direction."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import Ctx, cast_params, init_params
+    from repro_torch.train.compare import compare_grads, compare_states
+    from repro_torch.train.grad_compression import ef_init
+    from repro_torch.train.optimizer import AdamConfig
+    from repro_torch.train.train_step import (make_train_state, train_step,
+                                              value_and_grad)
+
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+    ctx = Ctx()
+    opt_cfg = AdamConfig(warmup=1)
+    res = {}
+    for arch in ARCHS:
+        cfg = smoke_config(arch)
+        host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = cast_params(host, cfg, dev)
+        rng = np.random.default_rng(0)
+        batches = []
+        for _ in range(2):
+            b = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(
+                np.int32), "targets": rng.integers(0, cfg.vocab, (2, 16))
+                .astype(np.int32)}
+            if cfg.encoder_layers:
+                b["frames"] = rng.normal(size=(2, 4, cfg.d_model)).astype(
+                    np.float32)
+            if cfg.n_patches:
+                b["patch_embeds"] = rng.normal(
+                    size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+            batches.append(b)
+        loss_c, grads_c = value_and_grad(card, batches[0], cfg, ctx)
+        loss_h, grads_h = value_and_grad(host, batches[0], cfg, ctx)
+        check(abs(float(loss_c) - float(loss_h))
+              <= TRAIN_LOSS_RTOL * abs(float(loss_h)),
+              f"phase 11 (c) {arch}: loss")
+        err = compare_grads(grads_c, grads_h, f"phase 11 (c) {arch}")
+        states = []
+        for params in (card, host):
+            st, _ = train_step(make_train_state(params), batches[0], cfg,
+                               ctx, opt_cfg)
+            first = st
+            st = st._replace(ef=ef_init(st.params))
+            st, _ = train_step(st, batches[1], cfg, ctx, opt_cfg, accum=2)
+            states.append((first, st))
+        first = compare_states(states[0][0], states[1][0], opt_cfg,
+                               what=f"phase 11 (c) {arch} step 1")
+        second = compare_states(
+            states[0][1], states[1][1], opt_cfg, before=first,
+            grad_scale=accum_grad_scale(states[1][0].params, batches[1],
+                                        cfg, ctx),
+            what=f"phase 11 (c) {arch} step 2")
+        res[arch] = {"grad_rel_err": err,
+                     "int8_boundary": second["int8_apart"],
+                     "params_loose": int(sum(m.sum()
+                                             for m in second["loose"]))}
+    return res
+
+
+def train_phase(args, card: str) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        a = train_full_grads(args, card)
+        log(f"phase 11 (a) {TRAIN_ARCH} ({a['params']:,} parameters) "
+            f"float32 on {card}: loss {a['loss_card']:.6f} against the "
+            f"CPU's {a['loss_cpu']:.6f}, grad norm {a['grad_norm_card']:.6f}"
+            f" against {a['grad_norm_cpu']:.6f}, leaves within "
+            f"{a['leaf_rel_err']:.3g} of their largest |grad| (limit "
+            f"{TRAIN_LEAF_REL}); card {a['card_s']:.1f} s, CPU "
+            f"{a['cpu_s']:.1f} s, {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        b = train_launcher_run(args, card)
+        log(f"phase 11 (b) {b['arch']} {b['dtype']} on {card}: "
+            f"{b['steps']} steps of {b['batch']} x {b['seq']}, step median "
+            f"{b['step_ms_median']:.3f} ms, min {b['step_ms_min']:.3f} ms "
+            f"(steps 2 to 19), {b['tok_per_s']:.1f} tok/s; "
+            + (f"one step {b['step_device_ms']:.3f} device ms in "
+               f"{b['step_kernels']:.0f} kernels (busy {b['step_busy']:.1%} "
+               "of the median step; "
+               + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                   b["step_device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+               + f" ms), Adam alone {b['adam_device_ms']:.3f} device ms in "
+               f"{b['adam_kernels']:.0f} kernels, {b['adam_host_ms']:.3f} ms "
+               f"of host; peak {b['peak_gib']:.3f} GiB; "
+               if "peak_gib" in b else "device not measured; ")
+            + f"checkpoint {b['ckpt_bytes'] / 1e9:.3f} GB: snapshot "
+            f"{b['ckpt_snapshot_s']:.3f} s, write {b['ckpt_write_s']:.3f} s,"
+            f" restore {b['ckpt_restore_s']:.3f} s; recoveries "
+            f"{b['recoveries']}, replayed steps within "
+            f"{b['replay_rel_err']:.3g}, step 0 against float32 "
+            f"{b['step0_rel_err']:.3g}; bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}: compute {b['bound_compute_ms']:.3f}, memory "
+            f"{b['bound_memory_ms']:.3f}); {time.perf_counter() - t1:.1f} s")
+        t2 = time.perf_counter()
+        fam = train_families(args)
+        log(f"phase 11 (c) ten families at smoke width on {card}: card "
+            f"against CPU, gradients within "
+            f"{max(r['grad_rel_err'] for r in fam.values()):.3g} of their "
+            f"scale, int8 boundary roundings "
+            f"{sum(r['int8_boundary'] for r in fam.values())}, params of "
+            f"undetermined Adam direction "
+            f"{sum(r['params_loose'] for r in fam.values())}, "
+            f"{time.perf_counter() - t2:.1f} s")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    res = {"full_grads": a, "launcher": b, "families": fam}
+    log(json.dumps({"lm_training": res}))
+    log(f"phase 11 (training path): {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2199,6 +2600,9 @@ def main() -> int:
 
     # -- phase 10 -----------------------------------------------------------
     lm_phase(args, card_name)
+
+    # -- phase 11 -----------------------------------------------------------
+    train_phase(args, card_name)
 
     # -- phase 6 ------------------------------------------------------------
     rows = []

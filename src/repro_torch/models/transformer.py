@@ -18,10 +18,16 @@ takes `pos` as an int (every row at one position: the reference's
 computation) or as a (B,) tensor: each row then writes its K/V (or its
 MLA `ckv`/`kpe`) at its own position and attends over its own prefix.
 
-The reference casts the float32 masters to the compute dtype inside
-every step; the port casts once (`cast_params`) and the caller holds
-the copy.  The values are the same.  Gradients, remat and the training
-step wait for the training slice (ROADMAP Queue 1, item 7b).
+Every function of the stack reads the parameters as the reference's
+tree of tensors (`LM.tree()`), and `run_stack` slices repeat r of each
+leaf (`v[r]`) as the reference's scan does.  `forward_train` casts the
+float32 masters to the compute dtype differentiably, inside the step as
+the reference does, so gradients land on the masters in float32; with
+autograd on, each repeat of the pattern is recomputed in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint(rep_body)`),
+and the repeat's slices are taken inside the recomputed function.
+Serving casts once (`cast_params`), the caller holds the copy, and
+`prefill` and `decode_step` run without autograd.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.compile import resolve_device
 from repro_torch.models import attention as A
@@ -39,6 +46,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
 from repro_torch.models.sharding import Ctx
+from repro_torch.models.tree import tree_map
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -59,16 +67,13 @@ class Params(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, Params(v))
             else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
-    def tree(self, r: int | None = None) -> dict:
-        """The reference's dict; with `r`, repeat r of every leaf."""
-        out: dict[str, Any] = {}
-        for k, v in self._parameters.items():
-            out[k] = v if r is None else v[r]
+    def tree(self) -> dict:
+        """The reference's dict."""
+        out: dict[str, Any] = dict(self._parameters)
         for k, m in self._modules.items():
-            out[k] = m.tree(r)
+            out[k] = m.tree()
         return out
 
 
@@ -120,11 +125,11 @@ class Block(Params):
                                       dtype, device, lead))
         return p
 
-    def forward(self, x, r: int, cfg, ctx, *, positions, mode, causal=True,
+    def forward(self, x, p, cfg, ctx, *, positions, mode, causal=True,
                 cache=None, pos=None, enc_out=None):
-        """Repeat r of this position.  Returns (x, new_cache_dict).  In
-        decode mode `pos` is a (B,) tensor of positions."""
-        p = self.tree(r)
+        """This position at one repeat, whose tree is `p`.  Returns (x,
+        new_cache_dict).  In decode mode `pos` is a (B,) tensor of
+        positions."""
         h = rms_norm(x, p["ln1"])
         if mode == "decode":
             new_cache = dict(cache)
@@ -403,8 +408,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.blocks = nn.ModuleList([AttnBlock(t, False)
                                      for t in tree["blocks"]])
-        self.final_norm = nn.Parameter(tree["final_norm"],
-                                       requires_grad=False)
+        self.final_norm = nn.Parameter(tree["final_norm"])
 
 
 class LM(nn.Module):
@@ -415,11 +419,10 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         _, _, moe_flags = _pattern_info(cfg)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(tree["final_norm"],
-                                       requires_grad=False)
+        self.embed = nn.Parameter(tree["embed"])
+        self.final_norm = nn.Parameter(tree["final_norm"])
         if "lm_head" in tree:
-            self.lm_head = nn.Parameter(tree["lm_head"], requires_grad=False)
+            self.lm_head = nn.Parameter(tree["lm_head"])
         self.blocks = nn.ModuleList([
             _block_class(kind)(tree["blocks"][j], moe_flags[j])
             for j, kind in enumerate(cfg.pattern)])
@@ -514,21 +517,36 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, s_enc: int = 0,
 # stacks
 # ---------------------------------------------------------------------------
 
-def run_stack(x, blocks, cfg: ModelConfig, ctx: Ctx, *, positions, mode,
-              causal=True, caches=None, pos=None, enc_out=None):
+def run_stack(x, blocks, trees, cfg: ModelConfig, ctx: Ctx, *, positions,
+              mode, causal=True, caches=None, pos=None, enc_out=None,
+              remat=False):
     """Every repeat of the blocks' pattern in turn (the reference's
-    `lax.scan` over repeats).  Returns x and, for prefill and decode, the
-    new caches stacked over repeats."""
-    reps = blocks[0].ln1.shape[0]
-    outs = []
-    for r in range(reps):
+    `lax.scan` over repeats); `trees[j]` is block j's tree, stacked over
+    repeats.  With `remat` and autograd on, each repeat is recomputed in
+    the backward.  Returns x and, for prefill and decode, the new caches
+    stacked over repeats."""
+    reps = trees[0]["ln1"].shape[0]
+
+    def rep_body(x, r, rep_caches):
         new = []
         for j, blk in enumerate(blocks):
-            cj = ({k: v[r] for k, v in caches[j].items()}
-                  if caches is not None else None)
-            x, nc = blk(x, r, cfg, ctx, positions=positions, mode=mode,
-                        causal=causal, cache=cj, pos=pos, enc_out=enc_out)
+            p = tree_map(lambda t: t[r], trees[j])
+            x, nc = blk(x, p, cfg, ctx, positions=positions, mode=mode,
+                        causal=causal,
+                        cache=rep_caches[j] if rep_caches else None,
+                        pos=pos, enc_out=enc_out)
             new.append(nc)
+        return x, new
+
+    outs = []
+    for r in range(reps):
+        rep_caches = ([{k: v[r] for k, v in c.items()} for c in caches]
+                      if caches is not None else None)
+        if remat and torch.is_grad_enabled():
+            x, new = checkpoint(rep_body, x, r, rep_caches,
+                                use_reentrant=False)
+        else:
+            x, new = rep_body(x, r, rep_caches)
         outs.append(new)
     if caches is None and mode != "prefill":
         return x, None
@@ -536,46 +554,48 @@ def run_stack(x, blocks, cfg: ModelConfig, ctx: Ctx, *, positions, mode,
                      for k in outs[0][j]} for j in range(len(blocks)))
 
 
-def _embed(params, tokens, cfg, ctx: Ctx, batch_extra=None):
-    x = params.embed[tokens].to(dtype_of(cfg.dtype))
+def _embed(tree, tokens, cfg, ctx: Ctx, batch_extra=None):
+    x = tree["embed"][tokens].to(dtype_of(cfg.dtype))
     if batch_extra is not None:       # vlm patches / prepended embeddings
         x = torch.cat([batch_extra.to(x.dtype), x], dim=1)
     return ctx.constraint(x)
 
 
-def _logits(params, x, cfg, ctx: Ctx):
-    x = rms_norm(x, params.final_norm)
-    head = params.lm_head if hasattr(params, "lm_head") else params.embed.T
+def _logits(tree, x, cfg, ctx: Ctx):
+    x = rms_norm(x, tree["final_norm"])
+    head = tree["lm_head"] if "lm_head" in tree else tree["embed"].T
     return ctx.constraint(x @ head)
 
 
-def _encode(params, frames, cfg, ctx):
+def _encode(params: LM, tree, frames, cfg, ctx):
     positions = torch.arange(frames.shape[1], device=frames.device)
     x = frames.to(dtype_of(cfg.dtype))
-    x, _ = run_stack(x, params.encoder.blocks, cfg, ctx, positions=positions,
-                     mode="encode", causal=False)
-    return rms_norm(x, params.encoder.final_norm)
+    enc = tree["encoder"]
+    x, _ = run_stack(x, params.encoder.blocks, enc["blocks"], cfg, ctx,
+                     positions=positions, mode="encode", causal=False)
+    return rms_norm(x, enc["final_norm"])
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every float leaf in `dtype`, differentiably (the reference's
+    `cast_params`): gradients flow back to the leaves given."""
+    return tree_map(lambda t: t.to(dtype)
+                    if t.is_floating_point() and t.dtype != dtype else t, tree)
 
 
 def cast_params(params: LM, cfg: ModelConfig, device=None) -> LM:
     """The model with every float tensor in the compute dtype, on
-    `device` (default: the model's).  The model itself when it already
-    is; else a new copy, which the caller holds for every step."""
+    `device` (default: the model's), for serving.  The model itself when
+    it already is; else a new copy, detached from the masters, which the
+    caller holds for every step."""
     dt = dtype_of(cfg.dtype)
     device = torch.device(device) if device is not None \
         else params.embed.device
     if all(p.dtype == dt and p.device == device
            for p in params.parameters()):
         return params
-
-    def conv(t):
-        if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items()}
-        if isinstance(t, tuple):
-            return tuple(conv(v) for v in t)
-        return t.detach().to(device=device, dtype=dt)
-
-    return LM(cfg, conv(params.tree()))
+    return LM(cfg, tree_map(lambda t: t.detach().to(device=device, dtype=dt),
+                            params.tree()))
 
 
 def _batch_on(batch, device):
@@ -584,32 +604,37 @@ def _batch_on(batch, device):
 
 def forward_train(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
     """batch: {'tokens': (B,S) ints, optional 'patch_embeds', 'frames'}.
-    Returns the logits (B, S[+patches], V); the gradient waits for the
-    training slice."""
-    params = cast_params(params, cfg)
+    Returns the logits (B, S[+patches], V).  The float32 masters are cast
+    to the compute dtype inside, differentiably, and each repeat is
+    recomputed in the backward."""
+    tree = _cast_tree(params.tree(), dtype_of(cfg.dtype))
     batch = _batch_on(batch, params.embed.device)
     enc_out = None
     if cfg.encoder_layers > 0:
-        enc_out = _encode(params, batch["frames"], cfg, ctx)
-    x = _embed(params, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
+        enc_out = _encode(params, tree, batch["frames"], cfg, ctx)
+    x = _embed(tree, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = run_stack(x, params.blocks, cfg, ctx, positions=positions,
-                     mode="train", causal=True, enc_out=enc_out)
-    return _logits(params, x, cfg, ctx)
+    x, _ = run_stack(x, params.blocks, tree["blocks"], cfg, ctx,
+                     positions=positions, mode="train", causal=True,
+                     enc_out=enc_out, remat=True)
+    return _logits(tree, x, cfg, ctx)
 
 
+@torch.no_grad()
 def prefill(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
     """Returns the last position's logits (B, V) and the caches."""
     params = cast_params(params, cfg)
+    tree = params.tree()
     batch = _batch_on(batch, params.embed.device)
     enc_out = None
     if cfg.encoder_layers > 0:
-        enc_out = _encode(params, batch["frames"], cfg, ctx)
-    x = _embed(params, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
+        enc_out = _encode(params, tree, batch["frames"], cfg, ctx)
+    x = _embed(tree, batch["tokens"], cfg, ctx, batch.get("patch_embeds"))
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = run_stack(x, params.blocks, cfg, ctx, positions=positions,
-                          mode="prefill", causal=True, enc_out=enc_out)
-    logits = _logits(params, x[:, -1:], cfg, ctx)
+    x, caches = run_stack(x, params.blocks, tree["blocks"], cfg, ctx,
+                          positions=positions, mode="prefill", causal=True,
+                          enc_out=enc_out)
+    logits = _logits(tree, x[:, -1:], cfg, ctx)
     return logits[:, 0], caches
 
 
@@ -632,17 +657,19 @@ def positions_of(pos, batch: int, device, smax: int | None = None):
     return t.to(device).expand(batch) if t.ndim == 0 else t.to(device)
 
 
+@torch.no_grad()
 def decode_step(params: LM, token, cache, pos, cfg: ModelConfig, ctx: Ctx):
     """token: (B,) ints; pos: an int, or a (B,) tensor of each row's
     position; cache: from `init_cache` (or `prefill`).  Returns (logits
     (B, V), new cache); the given cache is not changed."""
     params = cast_params(params, cfg)
+    tree = params.tree()
     device = params.embed.device
     token = torch.as_tensor(token, device=device)
     pos = positions_of(pos, token.shape[0], device, _cache_len(cache))
-    x = params.embed[token].to(dtype_of(cfg.dtype))
-    x, new_cache = run_stack(x, params.blocks, cfg, ctx, positions=None,
-                             mode="decode", causal=True, caches=cache,
-                             pos=pos)
-    logits = _logits(params, x[:, None], cfg, ctx)[:, 0]
+    x = tree["embed"][token].to(dtype_of(cfg.dtype))
+    x, new_cache = run_stack(x, params.blocks, tree["blocks"], cfg, ctx,
+                             positions=None, mode="decode", causal=True,
+                             caches=cache, pos=pos)
+    logits = _logits(tree, x[:, None], cfg, ctx)[:, 0]
     return logits, new_cache

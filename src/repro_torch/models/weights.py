@@ -11,6 +11,12 @@
   (dicts and tuples of numpy arrays, `jax.tree.map(np.asarray, params)`)
   as the port's `LM`.  `to_reference(model)` is its inverse: the same
   tree of numpy arrays, bit for bit.
+- `train_state_from_reference(state, cfg, device)`: the reference's
+  `TrainState` as numpy (`jax.tree.map(np.asarray, state)`: params,
+  `opt.m`, `opt.v`, `opt.step`, `ef`) as the port's, bit for bit.
+  `train_state_to_reference(state)` is its inverse: the port's
+  `TrainState` and `AdamState` of numpy leaves, whose fields and key
+  paths are the reference's.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 from repro_torch.core.compile import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, init_tree
+from repro_torch.models.tree import tree_map
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -28,19 +35,43 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                              resolve_device(device, "init_params")))
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_map(v, fn) for v in tree)
-    return fn(tree)
+def _tensors(tree, device):
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        device), tree)
+
+
+def _arrays(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def from_reference(params, cfg: ModelConfig, device=None) -> LM:
-    device = resolve_device(device, "from_reference")
-    return LM(cfg, _map(params, lambda a: torch.from_numpy(
-        np.array(a, copy=True)).to(device)))
+    return LM(cfg, _tensors(params, resolve_device(device, "from_reference")))
 
 
 def to_reference(model: LM):
-    return _map(model.tree(), lambda t: t.detach().cpu().numpy())
+    return _arrays(model.tree())
+
+
+def train_state_from_reference(state, cfg: ModelConfig, device=None):
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_step import TrainState
+
+    device = resolve_device(device, "train_state_from_reference")
+    ef = None if state.ef is None else _tensors(state.ef, device)
+    return TrainState(
+        params=LM(cfg, _tensors(state.params, device)),
+        opt=AdamState(m=_tensors(state.opt.m, device),
+                      v=_tensors(state.opt.v, device),
+                      step=_tensors(state.opt.step, device)),
+        ef=ef)
+
+
+def train_state_to_reference(state):
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_step import TrainState
+
+    return TrainState(
+        params=to_reference(state.params),
+        opt=AdamState(m=_arrays(state.opt.m), v=_arrays(state.opt.v),
+                      step=_arrays(state.opt.step)),
+        ef=None if state.ef is None else _arrays(state.ef))

@@ -22,7 +22,8 @@ Up to 8 slots, every request gets the tokens it gets served alone: a
 decode batch of at most 8 tokens fits the MoE capacity (at least 8), so
 no token is dropped.  The next token is the first maximum of the logits
 (`np.argmax`).  The engine is synchronous and tick-driven; a front end
-wraps `tick()` in its own loop.
+wraps `tick()` in its own loop.  A tick runs without autograd, so no
+step records a graph of the parameters it reads.
 """
 from __future__ import annotations
 
@@ -121,6 +122,7 @@ class ServeEngine:
             self._emit(req, logits[0], int(first_max(logits)[0]))
 
     # -- engine tick ------------------------------------------------------------
+    @torch.no_grad()
     def tick(self) -> int:
         """Admit + decode one token for all live slots.  Returns #live."""
         self._admit()
