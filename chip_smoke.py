@@ -145,6 +145,28 @@ result line):
      atol 1e-5 (`repro_torch.train.compare`, with the exceptions it
      derives).  Prints an
      `{"lm_training": ...}` line;
+  12. the model-sharding layer (no kernel of the port's), TF32 off,
+     weights from `torch.Generator().manual_seed(0)`: (a) Qwen1.5-0.5B at
+     full width in float32 as DTensors on a (data=2, model=2) mesh of 4
+     virtual slots of cuda:0 (`launch.mesh.world(4, "local")`) against
+     the unsharded card run of the same weights: `forward_train` logits
+     on 8 x 64 within MESH_LOGIT_REL of the largest |logit|, a 128-token
+     prefill at batch 2 and 8 greedy decode steps with equal tokens, one
+     loss and gradient and one `train_step` on the training launcher's
+     8 x 64 (phase 11 (a)'s limits), and each slot's bytes of parameters
+     and Adam state equal to its spec's share; (b) Granite-3.0-1B-A400M at
+     full width in float32 on the same mesh, through the MoE's
+     `local_map`: `forward_train` on 2 x 64 against each data shard's
+     row alone (the MoE routes a shard's tokens alone, its capacity from
+     their count) and a batch-1 prefill and 4 decode steps (the
+     replicated-token fallback) against unsharded;
+     (c) the dry run (`launch/dryrun.py`) of Qwen's three shapes and
+     Granite's train_4k at the pod mesh and DeepSeek-V2-236B's decode_32k
+     at both meshes, over fake worlds of 256 and 512 ranks: per device
+     flops, bytes, collective bytes and memory, the three roofline terms
+     (a prediction for a mesh of H100s), useful flops and seconds; (d)
+     the phase's peak device memory and seconds.  Prints a
+     `{"model_mesh": ...}` line;
   6. print one `{"kernels": [...]}` line (`launches` from phase 5,
      `serving_launches` from phase 7, `sharded_launches` from phase 8's
      opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
@@ -166,8 +188,8 @@ query answers to the repo's `assert_same` rule (rtol 2e-3, atol 1e-2).
 
 `--rehearse` runs the same phases on the CPU (plain versions only, no
 build, no launch checks) at `--sf`, to test the script without a card;
-phases 10 and 11 there run the smoke widths only (Qwen at 2 layers, in
-bf16 for phase 10 (a)); it prints no result line.  On the card the script runs at SF 1, seed 0
+phases 10, 11 and 12 (a) and (b) there run the smoke widths only (Qwen
+at 2 layers, in bf16 for phase 10 (a)); it prints no result line.  On the card the script runs at SF 1, seed 0
 only, the size its launch table holds.
 """
 from __future__ import annotations
@@ -2443,6 +2465,304 @@ def train_phase(args, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the model-sharding layer
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2)              # ("data", "model"), virtual slots of cuda:0
+MESH_DENSE, MESH_MOE = "qwen1_5_0_5b", "granite_moe_1b_a400m"
+MESH_LOGIT_REL = 1e-4            # logits: of the largest |logit|
+MESH_FWD = (8, 64)               # (a) forward_train batch x sequence
+MESH_MOE_FWD = (2, 64)           # (b)
+MESH_PROMPT, MESH_STEPS = 128, 8  # (a) prefill, then greedy decode steps
+MESH_MOE_PROMPT, MESH_MOE_STEPS = 16, 4  # (b) at batch 1
+# (c) the dry run's cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = [("qwen1_5_0_5b", "train_4k", False),
+                ("qwen1_5_0_5b", "prefill_32k", False),
+                ("qwen1_5_0_5b", "decode_32k", False),
+                ("granite_moe_1b_a400m", "train_4k", False),
+                ("deepseek_v2_236b", "decode_32k", False),
+                ("deepseek_v2_236b", "decode_32k", True)]
+
+
+def mesh_greedy(model, tokens, steps: int, ctx) -> tuple:
+    """A prefill of `tokens`, then `steps` greedy decode steps from its
+    caches grown to fit them: the tokens (steps + 1, B) and the last
+    logits, whole on the host."""
+    import torch
+    from repro_torch.models import decode_step, pad_cache, prefill
+    from repro_torch.models.sharding import gather
+
+    logits, cache = prefill(model, {"tokens": tokens}, model.cfg, ctx)
+    cache = pad_cache(cache, tokens.shape[1] + steps)
+    out = [gather(logits).argmax(-1).cpu()]
+    for i in range(steps):
+        logits, cache = decode_step(model, out[-1], cache,
+                                    tokens.shape[1] + i, model.cfg, ctx)
+        out.append(gather(logits).argmax(-1).cpu())
+    return torch.stack(out), gather(logits).float().cpu()
+
+
+def logit_err(got, want, what: str) -> float:
+    """max |got - want| over the largest |want|, held to MESH_LOGIT_REL."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape and bool(got.isfinite().all()),
+          f"{what}: shape {tuple(got.shape)} or non-finite values")
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= MESH_LOGIT_REL, f"{what}: logits off by {err:.3g} of the "
+          f"largest (limit {MESH_LOGIT_REL})")
+    return err
+
+
+def slot_bytes(tree) -> dict:
+    """Each slot's bytes of the DTensor leaves of `tree`, each leaf's
+    share held to its spec's: its whole bytes over the mesh sizes of the
+    axes that shard it (`param_specs` shards only what they divide)."""
+    import math
+
+    from repro_torch.models.tree import leaves
+    from torch.distributed.tensor import DTensor, Shard
+
+    per: dict = {}
+    for t in leaves(tree):
+        if not isinstance(t, DTensor):
+            continue
+        sizes = dict(zip(t.device_mesh.mesh_dim_names, t.device_mesh.shape))
+        split = math.prod(n for (_a, n), pl in zip(sizes.items(),
+                                                    t.placements)
+                          if isinstance(pl, Shard))
+        whole = t.numel() * t.element_size()
+        local = t.to_local()
+        shards = getattr(local, "_local_tensors", {0: local})
+        for r, x in shards.items():
+            got = x.numel() * x.element_size()
+            check(got * split == whole, f"phase 12: a slot holds {got} "
+                  f"bytes of a {whole}-byte leaf split {split} ways")
+            per[r] = per.get(r, 0) + got
+    return per
+
+
+def mesh_dense(args, card: str) -> dict:
+    """(a) Qwen1.5-0.5B at full width, float32, on the (2, 2) mesh of 4
+    virtual slots against the unsharded card run of the same weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_ctx, make_mesh, world
+    from repro_torch.models import LM, Ctx, cast_params, forward_train, init_params
+    from repro_torch.models.sharding import distribute, gather
+    from repro_torch.models.tree import leaves
+    from repro_torch.train.optimizer import AdamConfig, global_norm
+    from repro_torch.train.train_step import (make_train_state, train_step,
+                                              value_and_grad)
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    cfg = dataclasses.replace(get_config(MESH_DENSE) if cuda
+                              else smoke_config(MESH_DENSE), dtype="float32")
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = cast_params(masters, cfg, dev)
+    del masters
+    out = {"arch": cfg.name, "params": sum(p.numel()
+                                           for p in model.parameters())}
+    b, s = MESH_FWD
+    fwd = TokenPipeline(vocab=cfg.vocab, batch=b, seq_len=s).batch_at(1)
+    step = TokenPipeline(vocab=cfg.vocab, batch=launch.parse_args([]).batch,
+                         seq_len=launch.parse_args([]).seq).batch_at(0)
+    prompt = torch.from_numpy(TokenPipeline(
+        vocab=cfg.vocab, batch=MESH_SHAPE[0],
+        seq_len=MESH_PROMPT).batch_at(2)["tokens"]).long()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want_logits = forward_train(model, {"tokens": fwd["tokens"]}, cfg,
+                                    Ctx()).cpu()
+    want_toks, _ = mesh_greedy(model, prompt.to(dev), MESH_STEPS, Ctx())
+    loss1, grads1 = value_and_grad(model, step, cfg, Ctx())
+    grads1 = [g.cpu() for g in leaves(grads1)]
+    st1, m1 = train_step(make_train_state(model), step, cfg, Ctx(),
+                         AdamConfig())
+    loss1, norm1 = float(loss1), float(m1["grad_norm"])
+    del st1
+    out["unsharded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with world(4, "local"):
+        ctx = make_ctx(make_mesh(MESH_SHAPE, ("data", "model"), dev.type))
+        sharded = LM(cfg, distribute(model.tree(), ctx))
+        with torch.no_grad():
+            got = gather(forward_train(sharded, {"tokens": fwd["tokens"]},
+                                       cfg, ctx))
+        out["forward_rel_err"] = logit_err(got, want_logits,
+                                           "phase 12 (a) forward_train")
+        toks, _ = mesh_greedy(sharded, prompt.to(dev), MESH_STEPS, ctx)
+        check(torch.equal(toks, want_toks), "phase 12 (a): sharded prefill "
+              "and decode tokens differ from the unsharded card's")
+        loss2, grads2 = value_and_grad(sharded, step, cfg, ctx)
+        loss2 = float(gather(loss2))
+        worst = 0.0
+        for g, w in zip(leaves(grads2), grads1, strict=True):
+            g = gather(g).cpu()
+            check(bool(g.isfinite().all()), "phase 12 (a): non-finite grad")
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            check(err <= TRAIN_LEAF_REL * scale, f"phase 12 (a): a gradient"
+                  f" leaf off by {err:.3g} at scale {scale:.3g}")
+            worst = max(worst, err / max(scale, 1e-30))
+        del grads2
+        st2, m2 = train_step(make_train_state(sharded), step, cfg, ctx,
+                             AdamConfig())
+        norm2 = float(gather(m2["grad_norm"]))
+        check(abs(loss2 - loss1) <= TRAIN_LOSS_RTOL * abs(loss1),
+              f"phase 12 (a): loss {loss2} sharded, {loss1} unsharded")
+        check(abs(float(gather(m2["loss"])) - loss1)
+              <= TRAIN_LOSS_RTOL * abs(loss1), "phase 12 (a): the step's loss")
+        check(abs(norm2 - norm1) <= TRAIN_NORM_RTOL * norm1,
+              f"phase 12 (a): grad norm {norm2} sharded, {norm1} unsharded")
+        per = slot_bytes(st2.params)
+        opt = slot_bytes((st2.opt.m, st2.opt.v))
+        del st2, sharded
+    out.update(sharded_s=time.perf_counter() - t0, loss=loss1,
+               loss_sharded=loss2, grad_norm=norm1, grad_norm_sharded=norm2,
+               leaf_rel_err=worst, tokens=int(want_toks.numel()),
+               slot_param_bytes=per, slot_adam_bytes=opt)
+    return out
+
+
+def mesh_moe(args, card: str) -> dict:
+    """(b) Granite-3.0-1B-A400M at full width, float32, on the same mesh,
+    through the MoE's `local_map` branch: forward_train on 2 x 64 (against
+    each data shard's row run alone) and a batch-1 prefill and decode
+    (the replicated-token fallback)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_ctx, make_mesh, world
+    from repro_torch.models import LM, Ctx, cast_params, forward_train, init_params
+    from repro_torch.models.sharding import distribute, gather
+
+    cuda = not args.rehearse
+    dev = torch.device("cuda" if cuda else "cpu")
+    cfg = dataclasses.replace(get_config(MESH_MOE) if cuda
+                              else smoke_config(MESH_MOE), dtype="float32")
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = cast_params(masters, cfg, dev)
+    del masters
+    out = {"arch": cfg.name, "params": sum(p.numel()
+                                           for p in model.parameters())}
+    b, s = MESH_MOE_FWD
+    fwd = TokenPipeline(vocab=cfg.vocab, batch=b, seq_len=s).batch_at(3)
+    prompt = torch.from_numpy(TokenPipeline(
+        vocab=cfg.vocab, batch=1, seq_len=MESH_MOE_PROMPT).batch_at(4)[
+            "tokens"]).long().to(dev)
+    t0 = time.perf_counter()
+    # the MoE routes each data shard's tokens alone (its capacity from
+    # their count, as the reference's shard_map does), so the unsharded
+    # run takes each shard's rows alone too
+    rows = torch.from_numpy(fwd["tokens"]).chunk(MESH_SHAPE[0])
+    with torch.no_grad():
+        want = torch.cat([forward_train(model, {"tokens": r}, cfg,
+                                        Ctx()).cpu() for r in rows])
+    want_toks, want_last = mesh_greedy(model, prompt, MESH_MOE_STEPS, Ctx())
+    out["unsharded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with world(4, "local"):
+        ctx = make_ctx(make_mesh(MESH_SHAPE, ("data", "model"), dev.type))
+        sharded = LM(cfg, distribute(model.tree(), ctx))
+        with torch.no_grad():
+            got = gather(forward_train(sharded, {"tokens": fwd["tokens"]},
+                                       cfg, ctx))
+        out["forward_rel_err"] = logit_err(got, want,
+                                           "phase 12 (b) forward_train")
+        toks, last = mesh_greedy(sharded, prompt, MESH_MOE_STEPS, ctx)
+        check(torch.equal(toks, want_toks), "phase 12 (b): batch-1 decode "
+              "tokens differ from the unsharded card's")
+        out["decode_rel_err"] = logit_err(last, want_last,
+                                          "phase 12 (b) batch-1 decode_step")
+        del sharded
+    out.update(sharded_s=time.perf_counter() - t0,
+               tokens=int(want_toks.numel()))
+    return out
+
+
+def mesh_dryrun() -> list:
+    """(c) the dry run's cells over fake worlds of 256 and 512 ranks."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, multi_pod=multi)
+        keep = ("arch", "shape", "mesh", "chips", "flops_per_dev",
+                "bytes_per_dev", "collective_bytes_per_dev", "compute_s",
+                "memory_s", "collective_s", "bottleneck",
+                "useful_flops_ratio")
+        row = {k: r[k] for k in keep}
+        row.update(collectives=r["collectives"], memory=r["memory"],
+                   seconds=time.perf_counter() - t0)
+        check(row["flops_per_dev"] > 0 and row["bytes_per_dev"] > 0,
+              f"phase 12 (c): {arch} {shape}: nothing counted")
+        rows.append(row)
+        log(f"phase 12 (c) dry run {arch} {shape} {row['mesh']} "
+            f"(prediction for H100s): flops/dev {row['flops_per_dev']:.4g}, "
+            f"bytes/dev {row['bytes_per_dev']:.4g}, collective bytes/dev "
+            f"{row['collective_bytes_per_dev']:.4g}, argument bytes/dev "
+            f"{row['memory']['argument_bytes']:.4g}, peak live bytes/dev "
+            f"{row['memory']['peak_live_bytes']:.4g}; compute "
+            f"{row['compute_s']:.4g} s, memory {row['memory_s']:.4g} s, "
+            f"collective {row['collective_s']:.4g} s ({row['bottleneck']}), "
+            f"useful flops {row['useful_flops_ratio']:.3f}; "
+            f"{row['seconds']:.1f} s")
+    return rows
+
+
+def mesh_phase(args, card: str) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    cuda = not args.rehearse
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        a = mesh_dense(args, card)
+        log(f"phase 12 (a) {a['arch']} ({a['params']:,} parameters) float32 "
+            f"on a {MESH_SHAPE} mesh of 4 virtual slots of {card}: logits "
+            f"within {a['forward_rel_err']:.3g} of the largest, "
+            f"{a['tokens']} prefill and decode tokens equal, loss "
+            f"{a['loss_sharded']:.6f} against {a['loss']:.6f}, grad norm "
+            f"{a['grad_norm_sharded']:.6f} against {a['grad_norm']:.6f}, "
+            f"leaves within {a['leaf_rel_err']:.3g}; slot bytes: params "
+            f"{a['slot_param_bytes']}, Adam {a['slot_adam_bytes']}; "
+            f"unsharded {a['unsharded_s']:.1f} s, sharded "
+            f"{a['sharded_s']:.1f} s")
+        b = mesh_moe(args, card)
+        log(f"phase 12 (b) {b['arch']} ({b['params']:,} parameters) float32 "
+            f"on the same mesh: logits within {b['forward_rel_err']:.3g}, "
+            f"batch-1 decode within {b['decode_rel_err']:.3g} and "
+            f"{b['tokens']} tokens equal; unsharded {b['unsharded_s']:.1f} "
+            f"s, sharded {b['sharded_s']:.1f} s")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    c = mesh_dryrun()
+    res = {"dense": a, "moe": b, "dryrun": c,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if cuda else None),
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"model_mesh": res}))
+    log(f"phase 12 (model-sharding layer): peak "
+        + (f"{res['peak_gib']:.3f} GiB" if cuda else "not measured")
+        + f", {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2603,6 +2923,9 @@ def main() -> int:
 
     # -- phase 11 -----------------------------------------------------------
     train_phase(args, card_name)
+
+    # -- phase 12 -----------------------------------------------------------
+    mesh_phase(args, card_name)
 
     # -- phase 6 ------------------------------------------------------------
     rows = []

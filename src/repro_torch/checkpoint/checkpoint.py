@@ -15,7 +15,8 @@ The port of `repro/checkpoint/checkpoint.py`, with its layout:
     copy: on the CPU `Tensor.numpy()` shares the tensor's storage, which
     the next step could change under the writer;
   * `restore(..., device=)` places every leaf on the target device in
-    `like`'s dtype.
+    `like`'s dtype.  A sharded leaf (a DTensor) is saved whole and comes
+    back split as `like`'s is.
 
 NumPy has no bfloat16, and the port does not need `ml_dtypes`: a bf16
 leaf is saved widened to float32 (exact), the manifest keeps
@@ -32,7 +33,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.models.sharding import gather
 from repro_torch.models.tree import as_tree
 
 
@@ -59,7 +62,7 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     if not isinstance(leaf, torch.Tensor):
         a = np.array(leaf, copy=True)
         return a, str(a.dtype)
-    t = leaf.detach()
+    t = gather(leaf.detach())          # a DTensor whole
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy(), "bfloat16"
     return t.to("cpu", copy=True).numpy(), str(t.dtype).replace("torch.", "")
@@ -178,6 +181,9 @@ def restore(ckpt_dir: str, step: int, like, *, device=None):
 def _leaf(arr: np.ndarray, like, device) -> torch.Tensor:
     t = torch.from_numpy(arr)          # a fresh array, read from the file
     if isinstance(like, torch.Tensor):
-        return t.to(device=device if device is not None else like.device,
-                    dtype=like.dtype)
+        t = t.to(device=device if device is not None else like.device,
+                 dtype=like.dtype)
+        if isinstance(like, DTensor):  # split again as `like` is
+            t = distribute_tensor(t, like.device_mesh, like.placements)
+        return t
     return t.to(device=device)

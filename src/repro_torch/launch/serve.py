@@ -1,5 +1,5 @@
-"""Serving launcher: the continuous-batching engine on one device, with
-random weights (seed 0).
+"""Serving launcher: the continuous-batching engine on the visible
+devices, with random weights (seed 0).
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
@@ -9,7 +9,10 @@ published width (`get_config`), on the CPU at its smoke width
 (`smoke_config`).  `--smoke` is accepted as the reference launcher
 accepts it (always on there) and changes nothing.  The default
 architecture is Qwen1.5-0.5B.  Without `--device` the engine wants CUDA
-and raises when there is none.
+and raises when there is none.  On several visible devices (virtual
+slots of one, `core.mesh.virtual_devices`) the engine's weights and
+cache are sharded over the reference's (data, model) mesh of them
+(`launch.mesh.model_mesh`).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.compile import resolve_device
+from repro_torch.launch.mesh import make_ctx, model_mesh
 from repro_torch.models import Ctx, init_params
 from repro_torch.serve.batcher import Request, ServeEngine
 
@@ -79,12 +83,15 @@ def main(argv=None):
     cfg = (smoke_config(args.arch) if device.type == "cpu"
            else get_config(args.arch))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    eng = ServeEngine(params, cfg, Ctx(), slots=args.slots,
-                      max_len=args.max_len, device=device)
-    del params
-    reqs = make_requests(cfg, args.requests, args.max_new)
-    res = drain(eng, reqs)
-    print(f"{cfg.name}: {len(reqs)} requests, {res['tokens']} tokens, "
+    with model_mesh(device) as mesh:
+        ctx = make_ctx(mesh) if mesh is not None else Ctx()
+        eng = ServeEngine(params, cfg, ctx, slots=args.slots,
+                          max_len=args.max_len, device=device)
+        del params
+        reqs = make_requests(cfg, args.requests, args.max_new)
+        res = drain(eng, reqs)
+    shape = "" if mesh is None else f" over a {tuple(mesh.shape)} mesh"
+    print(f"{cfg.name}{shape}: {len(reqs)} requests, {res['tokens']} tokens, "
           f"{eng.ticks} ticks, {res['seconds']:.2f}s "
           f"({res['tokens'] / res['seconds']:.1f} tok/s on "
           f"{device_name(device)})")

@@ -1,5 +1,6 @@
 """Training launcher: the fault-tolerant driver over the deterministic
-pipeline, with async checkpoints, on one device, random weights (seed 0).
+pipeline, with async checkpoints, on the visible devices, random weights
+(seed 0).
 
     PYTHONPATH=src python -m repro_torch.launch.train            # the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
@@ -9,7 +10,10 @@ The port of `repro/launch/train.py` with its arguments and defaults
 a checkpoint every 20 steps).  As in the serving launcher the width
 follows the device: the published width on the card (`get_config`), the
 smoke width on the CPU (`smoke_config`); `--smoke` is accepted and
-changes nothing.  There is one device and no mesh (`Ctx()`).  Without
+changes nothing.  On one device there is no mesh (`Ctx()`); on several
+visible devices (virtual slots of one, `core.mesh.virtual_devices`) the
+model and its optimizer state are sharded over the reference's
+(data, model) mesh of them (`launch.mesh.model_mesh`).  Without
 `--device` it wants CUDA and raises when there is none.  Without
 `--ckpt` the checkpoints go to a temporary directory, removed at the
 end; with it, a rerun resumes from the latest checkpoint there.
@@ -24,19 +28,35 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.compile import resolve_device
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.mesh import make_ctx, model_mesh
 from repro_torch.launch.serve import device_name
-from repro_torch.models import Ctx, init_params
+from repro_torch.models import LM, Ctx, init_params
+from repro_torch.models.sharding import distribute
 from repro_torch.runtime.fault_tolerance import TrainDriver
 from repro_torch.train.optimizer import AdamConfig
 from repro_torch.train.train_step import make_train_state, train_step
 
 
-def make_driver(args, device, ckpt_dir: str, fail_hook=None):
-    """The launcher's model, state, pipeline and driver for `args`."""
+def launch_params(args, device) -> LM:
+    """The launcher's model: its config at the device's width, random
+    weights from seed 0 on `device`."""
     cfg = (smoke_config(args.arch) if device.type == "cpu"
            else get_config(args.arch))
-    ctx = Ctx()
-    params = init_params(cfg, torch.Generator().manual_seed(0), device)
+    return init_params(cfg, torch.Generator().manual_seed(0), device)
+
+
+def make_driver(args, device, ckpt_dir: str, fail_hook=None, mesh=None,
+                params: LM | None = None):
+    """The launcher's state, pipeline and driver for `args` over
+    `params` (default: `launch_params`), the parameters and optimizer
+    state sharded over `mesh` when one is given
+    (`launch.mesh.model_mesh`).  Draw the weights before a local world
+    opens: its mode draws random numbers per rank."""
+    params = params if params is not None else launch_params(args, device)
+    cfg = params.cfg
+    ctx = make_ctx(mesh) if mesh is not None else Ctx()
+    if mesh is not None:
+        params = LM(cfg, distribute(params.tree(), ctx))
     state = make_train_state(params, compression=args.compression)
     pipe = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
     opt_cfg = AdamConfig(warmup=10)
@@ -70,10 +90,14 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device, "the training launcher")
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp:
-        cfg, drv = make_driver(args, device, args.ckpt or tmp)
+    params = launch_params(args, device)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp, \
+            model_mesh(device) as mesh:
+        cfg, drv = make_driver(args, device, args.ckpt or tmp, mesh=mesh,
+                               params=params)
         drv.run(args.steps)
-    print(f"{cfg.name} on {device_name(device)}: done: "
+    shape = "" if mesh is None else f" over a {tuple(mesh.shape)} mesh"
+    print(f"{cfg.name} on {device_name(device)}{shape}: done: "
           f"{len(drv.metrics_log)} steps, "
           f"last loss {drv.metrics_log[-1]['loss']:.4f}, "
           f"recoveries {drv.recoveries}, "

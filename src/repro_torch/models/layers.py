@@ -64,7 +64,10 @@ def mlp_apply(x, p, kind: str):
 
 def normal(gen: torch.Generator, shape, std, dtype, device):
     """Standard normal draws from `gen` times `std`, as `dtype` on
-    `device`."""
+    `device`.  On the `meta` device, the shape alone: nothing is drawn
+    or allocated."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     t = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32) * std
     return t.to(device=device, dtype=dtype)

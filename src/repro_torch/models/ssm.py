@@ -5,7 +5,9 @@ sequence with an `associative_scan` inside each (no Pallas kernel); the
 port runs the same recurrence, h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,
 one step at a time in float32.  The two add in different orders, so
 they agree to float32 rounding (the tests hold them to rtol 1e-4, atol
-1e-5), not bit for bit.  Decode is the single-step recurrence.
+1e-5), not bit for bit.  Decode is the single-step recurrence, and the
+sequence form hands it the state it reached (`with_state`), where the
+reference's prefill hands on the zero state.
 """
 from __future__ import annotations
 
@@ -56,12 +58,16 @@ def _ssm_params(x1, p, cfg):
     return dt, bmat.float(), cmat.float(), a
 
 
-def mamba_forward(x, p, cfg):
-    """x: (B, S, D) -> (B, S, D)."""
+def mamba_forward(x, p, cfg, with_state: bool = False):
+    """x: (B, S, D) -> (B, S, D); with `with_state`, also the decode
+    state after the sequence: the scan's last `h` and the conv's input
+    tail (its last K-1 rows, zeros before the first token)."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     xz = x @ p["w_in"]
     x1, z = torch.chunk(xz, 2, dim=-1)
+    k = p["conv_w"].shape[0]
+    tail = F.pad(x1, (0, 0, k - 1, 0))[:, s:]
     x1 = F.silu(_causal_conv(x1, p["conv_w"], p["conv_b"]))
     dt, bmat, cmat, a = _ssm_params(x1, p, cfg)
     x1f = x1.float()
@@ -75,7 +81,8 @@ def mamba_forward(x, p, cfg):
         ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
     y = torch.stack(ys, dim=1)
     y = (y + p["d_skip"] * x1f).to(x.dtype)
-    return (y * F.silu(z)) @ p["w_out"]
+    out = (y * F.silu(z)) @ p["w_out"]
+    return (out, {"h": h, "conv": tail}) if with_state else out
 
 
 def mamba_decode_init(cfg, batch, dtype, device=None):

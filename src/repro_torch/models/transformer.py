@@ -28,12 +28,25 @@ autograd on, each repeat of the pattern is recomputed in the backward
 and the repeat's slices are taken inside the recomputed function.
 Serving casts once (`cast_params`), the caller holds the copy, and
 `prefill` and `decode_step` run without autograd.
+
+Over a mesh (`Ctx(mesh=...)`, `models/sharding.py`) the parameters are
+DTensors laid out by `param_specs`; the entry points place their inputs
+by `batch_spec` (and a decode cache by `cache_spec`) and pin the
+reference's constraints (the embedding's rows, the vocabulary-sharded
+logits).  Where DTensor, unlike GSPMD, cannot be left to choose, the
+stack chooses: a repeat's FSDP shards are gathered as it starts, the
+residual stream keeps one layout (`_residual`), heads that `model` does
+not divide are gathered before they are split, and attention with its
+cache writes runs on each rank's rows and heads (`local_call`).
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -45,7 +58,9 @@ from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
-from repro_torch.models.sharding import Ctx
+from repro_torch.models.sharding import (Ctx, P, batch_entry,
+                                         distribute_batch, distribute_cache,
+                                         gather_axes, local_call)
 from repro_torch.models.tree import tree_map
 
 
@@ -77,15 +92,46 @@ class Params(nn.Module):
         return out
 
 
-def _cross_attn(x, p, ln, enc_kv, cfg):
+def _heads(ctx: Ctx, b: int, h: int, hkv: int):
+    """The mesh entries of attention's batch and head dims: each rank
+    attends over its rows and, where `model` divides both head counts,
+    its heads (its query heads then read only its own KV heads)."""
+    heads = (ctx.tp_axis if ctx.mesh is not None and h % ctx.tp_size == 0
+             and hkv % ctx.tp_size == 0 else None)
+    return batch_entry(ctx, b) if ctx.mesh is not None else None, heads
+
+
+def _attend(ctx: Ctx, q, k, v, **kw):
+    """`blockwise_attention` on each rank's rows and heads: the product
+    of two dims sharded over two axes cannot be flattened into one
+    batched matmul of DTensors."""
+    bd, hd = _heads(ctx, q.shape[0], q.shape[2], k.shape[2])
+    spec = P(bd, None, hd, None)
+    return local_call(ctx, functools.partial(A.blockwise_attention, **kw),
+                      (q, k, v), (spec,) * 3, spec)
+
+
+def _cross_attn(x, p, ln, enc_kv, cfg, ctx):
     """Cross attention over precomputed encoder K/V."""
     b, s = x.shape[0], x.shape[1]
     h, hd = cfg.n_heads, cfg.hd
     hx = rms_norm(x, ln)
-    q = (hx @ p["w_q"]).reshape(b, s, h, hd)
+    q = _heads_of(ctx, hx @ p["w_q"], h, hd)
     k, v = enc_kv
-    out = A.blockwise_attention(q, k, v, causal=False)
+    out = _attend(ctx, q, k, v, causal=False)
     return out.reshape(b, s, -1) @ p["w_o"]
+
+
+def _residual(ctx: Ctx, x, out):
+    """`x + out`, over a mesh with `out` summed and laid out as the
+    residual stream is (rows over the data axes, replicated over
+    `model`) first: a row-parallel product's partial sums are reduced
+    here, and every repeat hands the next the layout it took.  This is
+    the reference's `REPRO_BLOCK_CONSTRAINT=1` layout, always on: DTensor
+    picks each operation's layout alone, where GSPMD solves the program,
+    and left free it hands torch 2.11 gradients it cannot add."""
+    spec = P(batch_entry(ctx, out.shape[0]), *[None] * (out.ndim - 1))
+    return x + ctx.constraint(out, spec)
 
 
 def _ffn(x, p, cfg, ctx, is_moe):
@@ -133,31 +179,32 @@ class Block(Params):
         h = rms_norm(x, p["ln1"])
         if mode == "decode":
             new_cache = dict(cache)
-            out, st = self.decode(h, p["mixer"], cfg, cache, pos)
+            out, st = self.decode(h, p["mixer"], cfg, ctx, cache, pos)
             new_cache.update(st)
-            x = x + out
+            x = _residual(ctx, x, out)
             if "cross" in p:
                 out = _cross_attn(x[:, None], p["cross"], p["ln_cross"],
-                                  (cache["ck"], cache["cv"]), cfg)[:, 0]
-                x = x + out
+                                  (cache["ck"], cache["cv"]), cfg, ctx)[:, 0]
+                x = _residual(ctx, x, out)
             if "ffn" in p:
-                x = x + _ffn(x[:, None], p, cfg, ctx, self.is_moe)[:, 0]
+                x = _residual(ctx, x, _ffn(x[:, None], p, cfg, ctx,
+                                           self.is_moe)[:, 0])
             return x, new_cache
 
         # ---- full-sequence modes (train / encode / prefill) -----------------
         out, new_cache = self.full(h, p["mixer"], cfg, ctx, positions, causal,
                                    mode)
-        x = x + out
+        x = _residual(ctx, x, out)
         if "cross" in p and enc_out is not None:
-            shape = (x.shape[0], enc_out.shape[1], cfg.n_kv_heads, cfg.hd)
-            k_enc = (enc_out @ p["cross"]["w_k"]).reshape(shape)
-            v_enc = (enc_out @ p["cross"]["w_v"]).reshape(shape)
-            x = x + _cross_attn(x, p["cross"], p["ln_cross"], (k_enc, v_enc),
-                                cfg)
+            hkv, hd = cfg.n_kv_heads, cfg.hd
+            k_enc = _heads_of(ctx, enc_out @ p["cross"]["w_k"], hkv, hd)
+            v_enc = _heads_of(ctx, enc_out @ p["cross"]["w_v"], hkv, hd)
+            x = _residual(ctx, x, _cross_attn(x, p["cross"], p["ln_cross"],
+                                              (k_enc, v_enc), cfg, ctx))
             if mode == "prefill":
                 new_cache["ck"], new_cache["cv"] = k_enc, v_enc
         if "ffn" in p:
-            x = x + _ffn(x, p, cfg, ctx, self.is_moe)
+            x = _residual(ctx, x, _ffn(x, p, cfg, ctx, self.is_moe))
         return x, new_cache
 
 
@@ -169,15 +216,23 @@ def _ap(t, positions, cfg, fr):
     return apply_rope(t, positions, theta=cfg.rope_theta, fraction=fr)
 
 
-def _qkv(x, p, cfg, positions):
-    b, s = x.shape[0], x.shape[1]
+def _heads_of(ctx: Ctx, t, n: int, hd: int):
+    """(B, S, n * hd) as (B, S, n, hd).  Over a mesh whose `model` axis
+    does not divide the n heads, the last dim is gathered over it first:
+    a shard that cuts a head cannot be split into heads."""
+    if ctx.mesh is not None and n % ctx.tp_size:
+        t = ctx.constraint(t, P(batch_entry(ctx, t.shape[0]), None, None))
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def _qkv(x, p, cfg, positions, ctx):
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["w_q"] + (p["b_q"] if "b_q" in p else 0)
     k = x @ p["w_k"] + (p["b_k"] if "b_k" in p else 0)
     v = x @ p["w_v"] + (p["b_v"] if "b_v" in p else 0)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    q = _heads_of(ctx, q, h, hd)
+    k = _heads_of(ctx, k, hkv, hd)
+    v = _heads_of(ctx, v, hkv, hd)
     fr = _rope_frac(cfg)
     if fr > 0:
         q = _ap(q, positions, cfg, fr)
@@ -218,22 +273,30 @@ class AttnBlock(Block):
     @staticmethod
     def full(x, p, cfg, ctx, positions, causal, mode):
         window = cfg.window if cfg.attn == "swa" else None
-        q, k, v = _qkv(x, p, cfg, positions)
-        out = A.blockwise_attention(
-            q, k, v, causal=causal, window=window,
-            unroll=cfg.unroll and cfg.attn_impl == "naive")
+        q, k, v = _qkv(x, p, cfg, positions, ctx)
+        out = _attend(ctx, q, k, v, causal=causal, window=window,
+                      unroll=cfg.unroll and cfg.attn_impl == "naive")
         out = out.reshape(x.shape[0], x.shape[1], -1) @ p["w_o"]
         return out, ({"k": k, "v": v} if mode == "prefill" else {})
 
     @staticmethod
-    def decode(x, p, cfg, cache, pos):
+    def decode(x, p, cfg, ctx, cache, pos):
         b = x.shape[0]
-        q, k, v = _qkv(x[:, None], p, cfg, pos[:, None])
-        k_cache = _put_rows(cache["k"], pos, k[:, 0])
-        v_cache = _put_rows(cache["v"], pos, v[:, 0])
+        q, k, v = _qkv(x[:, None], p, cfg, pos[:, None], ctx)
         window = cfg.window if cfg.attn == "swa" else None
-        out = A.decode_attention(q[:, 0], k_cache, v_cache, pos + 1,
-                                 window=window)
+
+        def step(q, k, v, k_cache, v_cache, pos):
+            k_cache = _put_rows(k_cache, pos, k)
+            v_cache = _put_rows(v_cache, pos, v)
+            return (A.decode_attention(q, k_cache, v_cache, pos + 1,
+                                       window=window), k_cache, v_cache)
+
+        # over a mesh each rank writes and reads its own rows and heads
+        bd, hd = _heads(ctx, b, cfg.n_heads, cfg.n_kv_heads)
+        one, kv = P(bd, hd, None), P(bd, None, hd, None)
+        out, k_cache, v_cache = local_call(
+            ctx, step, (q[:, 0], k[:, 0], v[:, 0], cache["k"], cache["v"],
+                        pos), (one, one, one, kv, kv, P(bd)), (one, kv, kv))
         out = out.reshape(b, -1) @ p["w_o"]
         return out, {"k": k_cache, "v": v_cache}
 
@@ -290,15 +353,14 @@ class MLABlock(Block):
         v = torch.einsum("bsl,lhn->bshn", ckv_n, p["w_uv"])
         q = torch.cat([q_nope, q_pe], dim=-1)
         k = torch.cat([k_nope, kpe[:, :, None].expand(b, s, h, rd)], dim=-1)
-        out = A.blockwise_attention(
-            q, k, v, causal=causal,
-            unroll=cfg.unroll and cfg.attn_impl == "naive")
+        out = _attend(ctx, q, k, v, causal=causal,
+                      unroll=cfg.unroll and cfg.attn_impl == "naive")
         out = out.reshape(b, s, -1) @ p["w_o"]
         return out, ({"ckv": ckv_n, "kpe": kpe} if mode == "prefill"
                      else {})
 
     @staticmethod
-    def decode(x, p, cfg, cache, pos):
+    def decode(x, p, cfg, ctx, cache, pos):
         b = x.shape[0]
         nope, rd = cfg.hd, cfg.rope_dim
         positions = pos[:, None]
@@ -319,6 +381,9 @@ class MLABlock(Block):
                                 (nope + rd) ** -0.5)
         out_c = torch.einsum("bhk,bkl->bhl", w, ckv_cache.float())
         out = torch.einsum("bhl,lhn->bhn", out_c, p["w_uv"].float())
+        # over a mesh the heads' values may come out sharded on their own
+        # dim, which flattening the heads cannot keep: rows only
+        out = ctx.constraint(out, P(batch_entry(ctx, b), None, None))
         out = out.reshape(b, -1).to(x.dtype) @ p["w_o"]
         return out, {"ckv": ckv_cache, "kpe": kpe_cache}
 
@@ -335,15 +400,14 @@ class MambaBlock(Block):
 
     @staticmethod
     def full(x, p, cfg, ctx, positions, causal, mode):
-        out = SSM.mamba_forward(x, p, cfg)
-        # prefill hands decode the reference's placeholder state (the
-        # zero state, not the state after the prompt; ROADMAP Queue 3)
-        return out, (SSM.mamba_decode_init(cfg, x.shape[0], x.dtype,
-                                           x.device)
-                     if mode == "prefill" else {})
+        # prefill hands decode the state after the prompt (the
+        # reference's hands on the zero state; ROADMAP Queue 3)
+        if mode == "prefill":
+            return SSM.mamba_forward(x, p, cfg, with_state=True)
+        return SSM.mamba_forward(x, p, cfg), {}
 
     @staticmethod
-    def decode(x, p, cfg, cache, pos):
+    def decode(x, p, cfg, ctx, cache, pos):
         return SSM.mamba_decode(x, {"h": cache["h"], "conv": cache["conv"]},
                                 p, cfg)
 
@@ -361,12 +425,12 @@ class MLSTMBlock(Block):
 
     @staticmethod
     def full(x, p, cfg, ctx, positions, causal, mode):
-        out = XL.mlstm_forward(x, p, cfg)
-        return out, (XL.mlstm_decode_init(cfg, x.shape[0], p, x.device)
-                     if mode == "prefill" else {})
+        if mode == "prefill":
+            return XL.mlstm_forward(x, p, cfg, with_state=True)
+        return XL.mlstm_forward(x, p, cfg), {}
 
     @staticmethod
-    def decode(x, p, cfg, cache, pos):
+    def decode(x, p, cfg, ctx, cache, pos):
         return XL.mlstm_decode(x, {k: cache[k] for k in ("c", "n", "m")},
                                p, cfg)
 
@@ -382,12 +446,12 @@ class SLSTMBlock(Block):
 
     @staticmethod
     def full(x, p, cfg, ctx, positions, causal, mode):
-        out = XL.slstm_forward(x, p, cfg)
-        return out, (XL.slstm_decode_init(cfg, x.shape[0], p, x.device)
-                     if mode == "prefill" else {})
+        if mode == "prefill":
+            return XL.slstm_forward(x, p, cfg, with_state=True)
+        return XL.slstm_forward(x, p, cfg), {}
 
     @staticmethod
-    def decode(x, p, cfg, cache, pos):
+    def decode(x, p, cfg, ctx, cache, pos):
         return XL.slstm_decode(x, {k: cache[k] for k in ("c", "n", "m", "h")},
                                p, cfg)
 
@@ -530,7 +594,10 @@ def run_stack(x, blocks, trees, cfg: ModelConfig, ctx: Ctx, *, positions,
     def rep_body(x, r, rep_caches):
         new = []
         for j, blk in enumerate(blocks):
-            p = tree_map(lambda t: t[r], trees[j])
+            # over a mesh, the repeat's FSDP shards are gathered here, a
+            # weight at a time (ZeRO-3): no product contracts over the
+            # data axes
+            p = tree_map(lambda t: gather_axes(t[r], ctx.dp_axes), trees[j])
             x, nc = blk(x, p, cfg, ctx, positions=positions, mode=mode,
                         causal=causal,
                         cache=rep_caches[j] if rep_caches else None,
@@ -554,17 +621,33 @@ def run_stack(x, blocks, trees, cfg: ModelConfig, ctx: Ctx, *, positions,
                      for k in outs[0][j]} for j in range(len(blocks)))
 
 
+def _lookup(table, tokens, cfg, ctx: Ctx):
+    """Rows of the embedding table.  A table FSDP-sharded over its
+    vocabulary is gathered whole along it first (a lookup across
+    vocabulary shards is a masked partial sum, which DTensor carries
+    only in part)."""
+    return F.embedding(tokens, gather_axes(table, ctx.dp_axes)).to(
+        dtype_of(cfg.dtype))
+
+
 def _embed(tree, tokens, cfg, ctx: Ctx, batch_extra=None):
-    x = tree["embed"][tokens].to(dtype_of(cfg.dtype))
+    x = _lookup(tree["embed"], tokens, cfg, ctx)
     if batch_extra is not None:       # vlm patches / prepended embeddings
         x = torch.cat([batch_extra.to(x.dtype), x], dim=1)
-    return ctx.constraint(x)
+    return ctx.constraint(x, P(batch_entry(ctx, x.shape[0]), None, None))
 
 
 def _logits(tree, x, cfg, ctx: Ctx):
     x = rms_norm(x, tree["final_norm"])
     head = tree["lm_head"] if "lm_head" in tree else tree["embed"].T
-    return ctx.constraint(x @ head)
+    head = gather_axes(head, ctx.dp_axes)     # its FSDP shards, as a block's
+    if os.environ.get("REPRO_HEAD_RESHARD") == "1" and ctx.mesh is not None:
+        # a tied head contracts over D, which the embedding shards over
+        # `model`: move the weight's shards onto the vocabulary instead,
+        # so the logits come out model-sharded with no partial sum
+        head = ctx.constraint(head, P(None, ctx.tp_axis))
+    return ctx.constraint(x @ head, P(batch_entry(ctx, x.shape[0]), None,
+                                      ctx.tp_axis))
 
 
 def _encode(params: LM, tree, frames, cfg, ctx):
@@ -598,8 +681,10 @@ def cast_params(params: LM, cfg: ModelConfig, device=None) -> LM:
                             params.tree()))
 
 
-def _batch_on(batch, device):
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def _batch_on(batch, device, ctx: Ctx):
+    """The inputs on `device`, placed by `batch_spec` over a mesh."""
+    return distribute_batch({k: torch.as_tensor(v, device=device)
+                             for k, v in batch.items()}, ctx)
 
 
 def forward_train(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
@@ -608,7 +693,7 @@ def forward_train(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
     to the compute dtype inside, differentiably, and each repeat is
     recomputed in the backward."""
     tree = _cast_tree(params.tree(), dtype_of(cfg.dtype))
-    batch = _batch_on(batch, params.embed.device)
+    batch = _batch_on(batch, params.embed.device, ctx)
     enc_out = None
     if cfg.encoder_layers > 0:
         enc_out = _encode(params, tree, batch["frames"], cfg, ctx)
@@ -625,7 +710,7 @@ def prefill(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
     """Returns the last position's logits (B, V) and the caches."""
     params = cast_params(params, cfg)
     tree = params.tree()
-    batch = _batch_on(batch, params.embed.device)
+    batch = _batch_on(batch, params.embed.device, ctx)
     enc_out = None
     if cfg.encoder_layers > 0:
         enc_out = _encode(params, tree, batch["frames"], cfg, ctx)
@@ -636,6 +721,22 @@ def prefill(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
                           enc_out=enc_out)
     logits = _logits(tree, x[:, -1:], cfg, ctx)
     return logits[:, 0], caches
+
+
+def pad_cache(cache, smax: int):
+    """`prefill`'s caches grown to `smax` positions, the layout of
+    `init_cache(cfg, B, smax)`: the sequence axis of every KV and MLA
+    entry zero-padded at its end, the recurrent states as they are."""
+    def grow(k, t):
+        if k not in ("k", "v", "ckv", "kpe"):
+            return t
+        shape = list(t.shape)
+        shape[2] = smax - shape[2]
+        # zeros laid out as `t` (a DTensor's placements too)
+        zeros = torch.zeros_like(t.narrow(2, 0, 1)).expand(shape)
+        return torch.cat([t, zeros], dim=2)
+
+    return tuple({k: grow(k, t) for k, t in c.items()} for c in cache)
 
 
 def _cache_len(cache) -> int | None:
@@ -666,8 +767,12 @@ def decode_step(params: LM, token, cache, pos, cfg: ModelConfig, ctx: Ctx):
     tree = params.tree()
     device = params.embed.device
     token = torch.as_tensor(token, device=device)
-    pos = positions_of(pos, token.shape[0], device, _cache_len(cache))
-    x = tree["embed"][token].to(dtype_of(cfg.dtype))
+    b = token.shape[0]
+    pos = positions_of(pos, b, device, _cache_len(cache))
+    if ctx.mesh is not None:
+        token = ctx.constraint(token, P(batch_entry(ctx, b)))
+        cache = distribute_cache(cache, b, ctx)
+    x = _lookup(tree["embed"], token, cfg, ctx)
     x, new_cache = run_stack(x, params.blocks, tree["blocks"], cfg, ctx,
                              positions=None, mode="decode", causal=True,
                              caches=cache, pos=pos)

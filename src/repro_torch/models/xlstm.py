@@ -7,6 +7,8 @@ kernel).  The sequence forms run the recurrence one step at a time, as
 the reference's `lax.scan` does; `mlstm_parallel` is the quadratic form.
 The stabiliser `m` starts at -1e30 in the decode inits, as in the
 reference (`transformer.init_cache` starts it at 0, also as there).
+The sequence forms hand decode the state they reached (`with_state`),
+where the reference's prefill hands on the decode init.
 """
 from __future__ import annotations
 
@@ -82,9 +84,10 @@ def mlstm_parallel(x, p, cfg):
     return (y * o) @ p["w_out"]
 
 
-def mlstm_forward(x, p, cfg):
-    """x: (B,S,D) -> (B,S,D)."""
-    if cfg.unroll:
+def mlstm_forward(x, p, cfg, with_state: bool = False):
+    """x: (B,S,D) -> (B,S,D); with `with_state`, also the recurrent state
+    {'c', 'n', 'm'} after the sequence."""
+    if cfg.unroll and not with_state:
         return mlstm_parallel(x, p, cfg)
     b, s, d = x.shape
     q, k, v, ig, fg = _mlstm_proj(x, p, cfg)
@@ -97,7 +100,10 @@ def mlstm_forward(x, p, cfg):
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
     o = torch.sigmoid(x @ p["w_o"])
-    return (y * o) @ p["w_out"]
+    out = (y * o) @ p["w_out"]
+    if with_state:
+        return out, dict(zip(("c", "n", "m"), state))
+    return out
 
 
 def mlstm_decode_init(cfg, batch, p=None, device=None):
@@ -150,7 +156,9 @@ def _slstm_step(p, state, wx):
     return (c, n, m_new, h_new), h_new
 
 
-def slstm_forward(x, p, cfg):
+def slstm_forward(x, p, cfg, with_state: bool = False):
+    """x: (B,S,D) -> (B,S,D); with `with_state`, also the recurrent state
+    {'c', 'n', 'm', 'h'} after the sequence."""
     b, s, d = x.shape
     wx = x @ p["w"]
     st = slstm_decode_init(cfg, b, p, x.device)
@@ -160,7 +168,10 @@ def slstm_forward(x, p, cfg):
         state, y = _slstm_step(p, state, wx[:, t])
         ys.append(y)
     y = torch.stack(ys, dim=1).to(x.dtype)
-    return y @ p["w_out"]
+    out = y @ p["w_out"]
+    if with_state:
+        return out, dict(zip(("c", "n", "m", "h"), state))
+    return out
 
 
 def slstm_decode_init(cfg, batch, p=None, device=None):

@@ -23,7 +23,10 @@ decode batch of at most 8 tokens fits the MoE capacity (at least 8), so
 no token is dropped.  The next token is the first maximum of the logits
 (`np.argmax`).  The engine is synchronous and tick-driven; a front end
 wraps `tick()` in its own loop.  A tick runs without autograd, so no
-step records a graph of the parameters it reads.
+step records a graph of the parameters it reads.  Given a context with a
+mesh (`Ctx(mesh=...)`), the weights and the cache are sharded over it
+(`param_specs`, `cache_spec`); an admission writes its slot's rows into
+the gathered cache and splits it again.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import torch
 
 from repro_torch.core.compile import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import Ctx
+from repro_torch.models.sharding import (Ctx, cache_spec, distribute,
+                                         distribute_cache, gather, place)
 from repro_torch.models.transformer import (LM, cast_params, decode_step,
                                             init_cache)
 
@@ -59,6 +63,7 @@ class Request:
 def first_max(logits: torch.Tensor) -> np.ndarray:
     """Each row's index of its first maximum, NaN counting as the
     largest (`np.argmax`), as a host array."""
+    logits = gather(logits)
     top = logits.amax(dim=-1, keepdim=True)
     hit = (logits == top) | torch.isnan(logits)
     cols = torch.arange(logits.shape[-1], device=logits.device)
@@ -70,15 +75,20 @@ class ServeEngine:
                  *, slots: int, max_len: int,
                  stop_token: Optional[int] = None, device=None):
         self.device = resolve_device(device, "ServeEngine")
-        # the compute-dtype copy on the device, held for every step
-        self.params = cast_params(params, cfg, self.device)
-        self.cfg = cfg
         self.ctx = ctx or Ctx()
+        # the compute-dtype copy on the device, held for every step, and
+        # sharded over the context's mesh when it has one
+        self.params = cast_params(params, cfg, self.device)
+        if self.ctx.mesh is not None:
+            self.params = LM(cfg, distribute(self.params.tree(), self.ctx))
+        self.cfg = cfg
         self.slots = slots
         self.max_len = max_len
         self.stop_token = stop_token
         self.s_enc = S_ENC if cfg.encoder_layers else 0
-        self.cache = init_cache(cfg, slots, max_len, self.s_enc, self.device)
+        self.cache = distribute_cache(
+            init_cache(cfg, slots, max_len, self.s_enc, self.device), slots,
+            self.ctx)
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.slot_pos = np.zeros(slots, dtype=np.int64)
         self.slot_limit = np.zeros(slots, dtype=np.int64)
@@ -94,6 +104,7 @@ class ServeEngine:
         self.queue.append(req)
 
     def _emit(self, req: Request, logits: torch.Tensor, nxt: int) -> int:
+        logits = gather(logits)
         if req.logits is not None:
             req.logits.append(logits.float().cpu())
         if req.force is not None:
@@ -113,13 +124,24 @@ class ServeEngine:
                 logits, rows = decode_step(
                     self.params, torch.tensor([int(tok)]), rows, i,
                     self.cfg, self.ctx)
-            for c, r in zip(self.cache, rows):
-                for k in c:
-                    c[k][:, s] = r[k][:, 0]
+            self._write_slot(s, rows)
             self.slot_req[s] = req
             self.slot_pos[s] = len(req.prompt)
             self.slot_limit[s] = len(req.prompt) + req.max_new
             self._emit(req, logits[0], int(first_max(logits)[0]))
+
+    def _write_slot(self, s: int, rows) -> None:
+        """Slot `s`'s rows of the cache set to `rows` (a batch-1 cache).
+        A sharded cache is gathered, written and split again."""
+        for c, r in zip(self.cache, rows):
+            for k in c:
+                if self.ctx.mesh is None:
+                    c[k][:, s] = r[k][:, 0]
+                    continue
+                whole = gather(c[k])
+                whole[:, s] = gather(r[k])[:, 0]
+                c[k] = place(whole, self.ctx.mesh, cache_spec(
+                    tuple(whole.shape), self.slots, self.ctx))
 
     # -- engine tick ------------------------------------------------------------
     @torch.no_grad()

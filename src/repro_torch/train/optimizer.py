@@ -38,8 +38,9 @@ class AdamState(NamedTuple):
 
 
 def _zeros(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    # `zeros_like`: a DTensor's moments keep its placements
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def adam_init(params) -> AdamState:

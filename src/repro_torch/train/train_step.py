@@ -1,12 +1,13 @@
 """The train step: loss, gradients, optional gradient compression, Adam.
 
-The port of `repro/train/train_step.py` on one device.  The loss drops
+The port of `repro/train/train_step.py`.  The loss drops
 the patch positions (`logits[:, -s:]`), takes a float32 logsumexp and
 honours `loss_mask`; the labels are gathered with an int64 index
-(`torch.gather` wants one; the pipeline's tokens are int32).  The
-reference's `REPRO_LOSS_MODE=onehot` branch gives the same number as a
-one-hot contraction, a device for a vocabulary sharded over a model
-mesh; it waits for the GSPMD slice (ROADMAP Queue 1, item 7c).
+(`torch.gather` wants one; the pipeline's tokens are int32).  Over a
+mesh the logits come out vocabulary-sharded over `model`: the gather
+reads them whole (an all-gather of the vocabulary axis, what GSPMD
+does for it), while `REPRO_LOSS_MODE=onehot` takes the label as a
+one-hot contraction, which sums each shard's part instead.
 
 With `accum > 1` the batch splits along its leading axis into `accum`
 microbatches, as the reference's `reshape(accum, b // accum, ...)`
@@ -18,12 +19,14 @@ driver's recovery rests on that).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import Ctx
+from repro_torch.models.sharding import Ctx, P, batch_entry
 from repro_torch.models.transformer import LM, forward_train
 from repro_torch.train.grad_compression import compress_grads, ef_init
 from repro_torch.train.optimizer import (AdamConfig, AdamState, adam_init,
@@ -44,11 +47,23 @@ def make_train_state(params: LM, *, compression: bool = False) -> TrainState:
 
 def loss_fn(params: LM, batch, cfg: ModelConfig, ctx: Ctx):
     logits = forward_train(params, batch, cfg, ctx)
-    targets = torch.as_tensor(batch["targets"], device=logits.device)
+    targets = ctx.constraint(
+        torch.as_tensor(batch["targets"], device=logits.device),
+        P(batch_entry(ctx, logits.shape[0]), None))
     s = targets.shape[1]
     logits = logits[:, -s:].float()               # drop patch positions
     lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if os.environ.get("REPRO_LOSS_MODE", "gather") == "onehot":
+        # the label lookup as a one-hot contraction: partitions cleanly
+        # over a vocabulary sharded over `model` (no cross-shard gather)
+        onehot = F.one_hot(targets.long(), logits.shape[-1]).to(logits.dtype)
+        lab = torch.sum(logits * onehot, dim=-1)
+    else:
+        # a gather across vocabulary shards needs the whole row first
+        whole = ctx.constraint(logits, P(batch_entry(ctx, logits.shape[0]),
+                                         None, None))
+        lab = torch.gather(whole, -1, targets.long().unsqueeze(-1)
+                           ).squeeze(-1)
     ce = lse - lab
     mask = batch.get("loss_mask")
     if mask is not None:

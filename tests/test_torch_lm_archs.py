@@ -87,12 +87,41 @@ def families():
     return out
 
 
+RECURRENT = {"mamba": ("h", "conv"), "mlstm": ("c", "n", "m"),
+             "slstm": ("c", "n", "m", "h")}
+
+
+def reference_end_state(ref, cfg, tokens):
+    """The reference's recurrent states after `tokens`, fed one at a time
+    through its `decode_step` from its decode inits (zeros, the xLSTM
+    stabiliser at -1e30): what a prefill hands decode."""
+    b, s = tokens.shape
+    cache = RM.init_cache(cfg, b, s)
+    cache = tuple(dict(c, m=jnp.full_like(c["m"], -1e30))
+                  if kind in ("mlstm", "slstm") else c
+                  for kind, c in zip(cfg.pattern, cache))
+    for i in range(s):
+        _, cache = RM.decode_step(ref, jnp.asarray(tokens[:, i]), cache,
+                                  jnp.int32(i), cfg, RM.Ctx(mesh=None))
+    return cache
+
+
 @pytest.mark.parametrize("arch", RC.ARCHS)
 def test_prefill_matches_reference(families, arch):
+    """Logits and KV caches against the reference's `prefill`.  The
+    recurrent states (Mamba, mLSTM, sLSTM) against the state the
+    reference's own decode recurrence reaches over the prompt: the
+    reference's prefill hands on its zero placeholder there, the port
+    the state after the prompt (ROADMAP Queue 3)."""
     cfg, ref, port = families[arch]
     batch = batch_for(cfg)
     want_logits, want_cache = RM.prefill(
         ref, jax.tree.map(jnp.asarray, batch), cfg, RM.Ctx(mesh=None))
+    if any(kind in RECURRENT for kind in cfg.pattern):
+        end = reference_end_state(ref, cfg, batch["tokens"])
+        want_cache = tuple(
+            dict(c, **{k: e[k] for k in RECURRENT.get(kind, ())})
+            for kind, c, e in zip(cfg.pattern, want_cache, end))
     got_logits, got_cache = PM.prefill(port, batch, port.cfg, PM.Ctx())
     close(got_logits, want_logits, f"{arch} prefill logits")
     close(got_cache, want_cache, f"{arch} prefill cache")
@@ -158,3 +187,32 @@ def test_random_init_has_reference_shapes_and_scales(families, arch):
         else:
             assert w.size >= 128
             assert 0.75 < g.std() / w.std() < 1.33
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_125m"])
+def test_prefill_then_decode_equals_token_by_token(families, arch):
+    """`prefill` hands decode the recurrent state the prompt reached: a
+    prefill, then greedy decode steps, gives the logits and tokens of
+    the prompt fed one token at a time through `decode_step` from the
+    recurrences' own start (the decode inits: zeros, the xLSTM
+    stabiliser at -1e30), to rtol 1e-5."""
+    _, _, port = families[arch]
+    cfg = port.cfg
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab, (B, 12))
+    smax, ctx = 20, PM.Ctx()
+    logits, cache = PM.prefill(port, {"tokens": tokens}, cfg, ctx)
+    cache = PM.pad_cache(cache, smax)
+    step = tuple(dict(c, m=torch.full_like(c["m"], -1e30))
+                 if kind in ("mlstm", "slstm") else c
+                 for kind, c in zip(cfg.pattern,
+                                    PM.init_cache(cfg, B, smax, device="cpu")))
+    for i in range(tokens.shape[1]):
+        want, step = PM.decode_step(port, tokens[:, i], step, i, cfg, ctx)
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
+    for i in range(6):
+        tok = logits.argmax(-1)
+        assert torch.equal(tok, want.argmax(-1))
+        pos = tokens.shape[1] + i
+        logits, cache = PM.decode_step(port, tok, cache, pos, cfg, ctx)
+        want, step = PM.decode_step(port, tok, step, pos, cfg, ctx)
+        torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
