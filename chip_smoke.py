@@ -11,9 +11,12 @@ result line):
      `opt-pallas` on the CPU — the port's own reference answers — and the
      row layout of q1, q6, q12 and q19 at `opt-pallas`, while recording
      the operands the opt-pallas plans hand to each kernel (those of q1,
-     q3, q6 and q12 feed phases 4 and 4b);
+     q3, q6 and q12 feed phases 4 and 4b), and the batched instances'
+     operands of a two-binding `run_many` of each parameterized plan at
+     opt-pallas (phase 4c);
   3. build every kernel library, every generated instance phase 5 reaches
-     among them (one nvcc per source, all at once);
+     among them and the batched instances of the bind-many pass (one nvcc
+     per source, all at once);
   4. hold each kernel against its plain torch version on the card, at the
      recorded SF 1 shapes and at edge cases (1 and 37 rows, no valid row,
      overflow past the capacity, translate), and compaction under many
@@ -34,6 +37,19 @@ result line):
      single PyTorch call computing the same function, and require one
      kernel a call (compact_pred with its memset, the selective form at
      capacity 0);
+  4c. the batched instances (the bind-many pass: `run_many` under
+     `torch.func.vmap`, each engine op's vmap rule one launch for B
+     bindings): each recorded call widened to B = 1, 7 and 64 bindings,
+     against its batched plain version (integers exact, floats within
+     KERNEL_TOL), every slot b bit for bit the scalar kernel's output on
+     binding b's operands, one launch a call (with its memset for the
+     compactions; counted in the host's runtime calls, and on the device
+     in up to three profiler windows); at B = 64 each timed (kernel,
+     plain version, the one PyTorch call of the same function where
+     there is one, device profile, host clock) beside a bound
+     that counts a shared operand once and a batched one and every output
+     B times; the batched compaction over 2^22 + 37 rows, B = 8, 20 calls
+     against one plain answer;
   4b. the kernel library's surface (`repro_torch.kernels`), whose
      gather_join, masked_topk and capacity form of selective_filter_agg
      the engine never calls: reset their launch counters, drive each entry
@@ -72,9 +88,18 @@ result line):
      opt, one staging a shape, no library built by the rebind, the
      launches `LAUNCHES_SF1_PARAM` requires, cold (staging, `compile()`
      and first run) and warm times, and a specialized binding's own
-     build; (b) `execute_many` of 1, 4 and 16 bindings of q6 and q12
-     and the entry's own `run_many` of the same, each slot against
-     `run`, all three timed; (c) a hand-planted 64-row compaction point
+     build; (b) the batched pass, its launch counters set to 0 before
+     and read after: 64 bindings of each of the six plans as one
+     `run_many`, one execution each, launching exactly
+     `LAUNCHES_SF1_PARAM[q]` (not 64 times it), every batched instance
+     launched, the pass's peak device memory; every slot against `run`
+     and the CPU; at 1, 2, 3, 4, 16 and 64 bindings the executions
+     `run_many` takes (one scalar walk a binding below
+     `compile.BATCH_MIN`, else passes), then `execute_many`, the entry's
+     `run_many`, one batched pass (`run_batched`) and n `run`s, ms a
+     binding (least of 3); a planted
+     64-row point that one slot of 64 overflows: one overflow, the twin
+     run once, every slot equal to the CPU; (c) a hand-planted 64-row compaction point
      that overflows: the twin's answer, the true count observed, one
      re-plan that stages once and then no overflow; (d) a tiered cache:
      request 1 from the oracle, then the promoted opt-pallas tier, equal
@@ -170,7 +195,9 @@ result line):
   6. print one `{"kernels": [...]}` line (`launches` from phase 5,
      `serving_launches` from phase 7, `sharded_launches` from phase 8's
      opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
-     kernel checks), and last the result line.
+     kernel checks; the batched instances' rows their `launches` from
+     phase 7 (b)'s batched pass and their times from phase 4c), and last
+     the result line.
 
 Every timed kernel shape is also profiled over 10 calls
 (`torch.profiler`): `device_ms` (device time of its kernels and memsets
@@ -448,35 +475,71 @@ def host_ms(fn, calls: int = 100) -> float:
     return t / calls * 1e3
 
 
-def profile_call(fn, calls: int = 10) -> dict:
+# seconds between a profiler window's own warm-up call and the calls it
+# counts (profile_call)
+PROFILE_SETTLE_S = 0.02
+
+
+def profile_call(fn, calls: int = 10, times: bool = False) -> dict:
     """Device time and device operations per call of `fn` over `calls`
     calls under torch.profiler, after a warm-up: `device_ms` sums the
     device time of its kernels and memsets; `kernels_per_call` counts
     kernel launches, `memsets_per_call` memsets; `device_kernels` gives
-    each one's device ms per call."""
+    each one's device ms per call; `api_*_per_call` count the host's
+    runtime calls; with `times`, `launch_us` and `kernel_us` give when
+    each launch call was made and each kernel began, in µs from the
+    first counted launch call.  The window makes one call of its own
+    before the counted ones: late in a run on an H100 the profiler lost
+    the first device operation of a window, and that call takes its
+    place.  The counted calls run inside a `record_function` range;
+    device events count from PROFILE_SETTLE_S / 2 before it (the card's
+    clock as the profiler reads it was seen 0.5 ms off the host's)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    memsets = [e for e in dev if e.key.startswith("Memset")]
-    kernels = [e for e in dev if not e.key.startswith(("Memset", "Memcpy"))]
+        time.sleep(PROFILE_SETTLE_S)
+        with record_function("profile_call.counted"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    span = next(e.time_range for e in events
+                if e.name == "profile_call.counted")
+    api = [e for e in events if e.device_type == cpu
+           and span.start <= e.time_range.start <= span.end
+           and e.name.startswith(("cudaLaunch", "cudaMemset"))]
+    dev = [e for e in events if e.device_type == cuda
+           and e.time_range.start >= span.start - PROFILE_SETTLE_S * 5e5
+           and e.name != "profile_call.counted"]   # the range's own mark
+    memsets = [e for e in dev if e.name.startswith("Memset")]
+    kernels = [e for e in dev
+               if not e.name.startswith(("Memset", "Memcpy"))]
     by_name: dict = {}
     for e in dev:                 # names that share 60 characters add up
-        by_name[e.key[:60]] = (by_name.get(e.key[:60], 0.0)
-                               + e.self_device_time_total / 1e3 / calls)
+        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                + e.self_device_time_total / 1e3 / calls)
+    launches = sorted(e.time_range.start for e in api
+                      if e.name.startswith("cudaLaunch"))
+    t0 = launches[0] if launches else span.start
     return {"device_ms": sum(e.self_device_time_total for e in dev)
             / 1e3 / calls,
-            "kernels_per_call": sum(e.count for e in kernels) / calls,
-            "memsets_per_call": sum(e.count for e in memsets) / calls,
-            "device_kernels": by_name}
+            "kernels_per_call": len(kernels) / calls,
+            "memsets_per_call": len(memsets) / calls,
+            "device_kernels": by_name,
+            # the host's runtime calls, which the tracer records as they
+            # are made (a device event can be lost, these are not)
+            "api_launches_per_call": len(launches) / calls,
+            "api_memsets_per_call": (len(api) - len(launches)) / calls,
+            **({"launch_us": [round(t - t0, 1) for t in launches],
+                "kernel_us": sorted(round(e.time_range.start - t0, 1)
+                                    for e in kernels)} if times else {})}
 
 
 def max_err(got, want, what: str, exact: bool = False) -> float:
@@ -873,6 +936,295 @@ def one_kernel_a_call(name: str, fn, memsets: int) -> dict:
             log(f"{name}: one kernel and {memsets} memsets a call")
             return p
     check(False, f"{name}: {p['kernels_per_call']} kernels a call")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the batched instances (the bind-many pass)
+# ---------------------------------------------------------------------------
+
+# name -> (kernel module, packed batched form its custom op's vmap rule
+# calls, the public batched form, its batched plain version, the scalar
+# kernel of one binding, the scalar form's launch counter)
+BATCHED = {
+    "compact_batched": ("compact", "compact_batched_packed",
+                        "compact_batched", "compact_batched_plain",
+                        "compact"),
+    "compact_pred_batched": ("compact", "compact_pred_batched_packed",
+                             "compact_pred_batched",
+                             "compact_pred_batched_plain", "compact_pred"),
+    "filter_agg_batched": ("filter_agg", "filter_agg_batched_packed",
+                           "filter_agg_batched", "filter_agg_batched_plain",
+                           "filter_agg"),
+    "selective_filter_agg_batched": (
+        "filter_agg", "selective_filter_agg_batched_packed",
+        "selective_filter_agg_batched", "selective_filter_agg_batched_plain",
+        "selective_filter_agg"),
+}
+# the batched pass's launches, by the scalar kernel they count against in
+# LAUNCHES_SF1_PARAM
+BATCHED_OF = {name: spec[4] for name, spec in BATCHED.items()}
+# memsets beside the one kernel of a batched call
+BATCHED_MEMSETS = {"compact_batched": 1, "compact_pred_batched": 1,
+                   "filter_agg_batched": 0, "selective_filter_agg_batched": 0}
+BATCH_SIZES = (1, 7, 64)         # phase 4c's bindings a call
+BATCH_TIMED = 64                 # and the timed one
+RUN_MANY_SIZES = (1, 2, 3, 4, 16, 64)  # phase 7 (b)'s bindings a call
+
+
+def batched_records(db):
+    """Every batched kernel call of a two-binding batched pass
+    (`run_batched` of the default and the alternative bindings) of each
+    parameterized plan at
+    opt-pallas on the CPU, as (query, name, args, kwargs): the SF 1
+    operands with the pattern of batched (two rows) and shared operands
+    that vmap gives the engine's custom operators."""
+    from repro_torch.core import PlanCache, preset
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES)
+
+    calls, current = [], [None]
+    saved = {}
+    for name, (mod, packed, *_r) in BATCHED.items():
+        m = kmod(mod)
+        real = saved[name] = getattr(m, packed)
+
+        def rec(*a, _real=real, _name=name, **k):
+            calls.append((current[0], _name, a, k))
+            return _real(*a, **k)
+        setattr(m, packed, rec)
+    cache = PlanCache(db, device="cpu")
+    try:
+        for q in sorted(PARAM_QUERIES):
+            current[0] = q
+            b = param_bindings(PARAM_QUERIES, PARAM_ALT_BINDINGS, q)
+            cq, _rt = cache.get(PARAM_QUERIES[q][0](), preset("opt-pallas"),
+                                b["default"])
+            cq.run_batched([{k: v[k] for k in cq.param_spec}
+                            for v in (b["default"], b["alt"])])
+    finally:
+        for name, (mod, packed, *_r) in BATCHED.items():
+            setattr(kmod(mod), packed, saved[name])
+        cache.close()
+    return calls
+
+
+def widen(x, B: int):
+    """`x` with every batched operand (two bindings in front) cycled to B
+    bindings; shared operands stay one copy.  An operand is batched when
+    it has one dimension more than one binding's: columns, masks and
+    group indexes are 1-D a binding, parameter vectors too."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if x.ndim == 2:
+            return x[torch.arange(B, device=x.device) % x.shape[0]] \
+                .contiguous()
+        return x
+    if isinstance(x, dict):
+        return {k: widen(v, B) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(widen(v, B) for v in x)
+    return x
+
+
+def _binding_args(name: str, a, b: int):
+    """The scalar kernel's arguments for binding b of a batched call."""
+    kc = kmod("compact")
+    one = (lambda t: kc.binding(t, b, 1))
+    if name == "compact_batched":
+        mask, cap, tr = a
+        return (one(mask), cap), {"translate": tr}
+    if name == "filter_agg_batched":
+        mask, gidx, vals, G = a
+        return (one(mask), one(gidx), [one(v) for v in vals], G), {}
+    cols, fp, ip, kinds, pred, *rest = a
+    cols = {k: one(v) for k, v in cols.items()}
+    sc = kc.binding_scalars(fp, ip, kinds, b)
+    if name == "compact_pred_batched":
+        cap, tr = rest
+        return (cols, sc, pred, cap), {"translate": tr}
+    return (cols, sc, pred, *rest), {}
+
+
+def _batched_bytes(name: str, a, out) -> int:
+    """The bytes a batched call must move: every operand read once (a
+    shared one once for all bindings, a batched one B times: its B rows)
+    and every output written once."""
+    import torch
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return nbytes(x)
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return 0
+
+    return walk(a) + walk(out)
+
+
+def batched_library_call(name: str, a):
+    """One PyTorch call that computes a batched instance's function on
+    its operands, its inputs prepared outside it, or None: for the
+    compaction `torch.nonzero` of the (B, n) masks (every binding's ids
+    in order, as (binding, row) pairs), for the aggregation one
+    `index_add_` of the masked values into a (B x G, A) table at index
+    b x G + gidx (the scalar row's `index_add_`, every binding at once).
+    The generated instances' predicates are no one call."""
+    import torch
+
+    if name == "compact_batched":
+        mask = a[0]
+        return lambda: torch.nonzero(mask)
+    if name != "filter_agg_batched" or not a[2]:
+        return None
+    mask, gidx, vals, G = a
+    B = batch_of(a)
+    rows = (lambda t: t.expand(B, -1) if t.ndim == 1 else t)
+    vm = torch.where(rows(mask)[..., None],
+                     torch.stack([rows(v) for v in vals], -1), 0.0) \
+        .reshape(-1, len(vals))
+    at = (rows(gidx) + G * torch.arange(B, dtype=torch.int32,
+                                        device=gidx.device)[:, None]) \
+        .reshape(-1)
+    out = torch.zeros((B * G, len(vals)), device=mask.device)
+    return lambda: out.index_add_(0, at, vm)
+
+
+def batch_of(a) -> int:
+    """B of a batched call's arguments: the leading extent of its first
+    batched (2-D) operand."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.shape[0] if a.ndim == 2 else 0
+    if isinstance(a, dict):
+        a = list(a.values())
+    if isinstance(a, (list, tuple)):
+        return max([batch_of(x) for x in a] + [0])
+    return 0
+
+
+def batched_checks(brecords, dev, timed: bool) -> dict:
+    """Each batched instance at the recorded SF 1 operands, widened to B =
+    1, 7 and 64 bindings: against its batched plain version (ints exact,
+    floats within KERNEL_TOL), slot b bit for bit the scalar kernel's
+    output on binding b, one kernel a call (with its one memset for the
+    compactions); at B = 64 the largest call of each is timed (kernel,
+    plain version, `batched_library_call`, device profile, host clock)
+    beside its bound.  Returns one entry per batched instance."""
+    import torch
+
+    out: dict = {}
+    for q, name, a, k in brecords:
+        mod, _packed, public, plain, scalar = BATCHED[name]
+        m = kmod(mod)
+        a = to(dev, a)
+        for B in BATCH_SIZES:
+            wa = widen(a, B)
+            got = getattr(m, public)(*wa, **k)
+            want = getattr(m, plain)(*wa, **k)
+            e = out.setdefault(name, {"max_abs_err": 0.0, "n": -1,
+                                      "calls": 0})
+            e["max_abs_err"] = max(e["max_abs_err"], max_err(
+                got, want, f"{name} {q} B={B}"))
+            e["calls"] += 1
+            if dev.type == "cuda":
+                for b in range(B):
+                    sa, sk = _binding_args(name, wa, b)
+                    one = getattr(m, scalar)(*sa, **sk)
+                    check(all(torch.equal(g[b], w)
+                              for g, w in zip(got, one)),
+                          f"{name} {q} B={B}: slot {b} differs from the "
+                          "scalar kernel's output bit for bit")
+            n = next(t for t in (wa[0].values() if isinstance(wa[0], dict)
+                                 else [wa[0]])).shape[-1]
+            if B != BATCH_TIMED or n <= e["n"]:
+                continue
+            e.update(n=n, B=B, query=q, bytes=_batched_bytes(name, wa, got))
+            if not timed:
+                continue
+            fn = (lambda wa=wa, f=getattr(m, public): f(*wa, **k))
+            lib = batched_library_call(name, wa)
+            e.update(ms=time_ms(fn),
+                     plain_ms=time_ms(lambda wa=wa, f=getattr(m, plain):
+                                      f(*wa, **k), reps=3, inner=1),
+                     library_ms=time_ms(lib, reps=3, inner=1)
+                     if lib is not None else None,
+                     host_ms=host_ms(fn),
+                     **one_launch_a_call(name, fn, BATCHED_MEMSETS[name]))
+            del lib
+            log(f"{name} {q} at B={B} x {n} rows: {e['ms']} ms "
+                f"({e['ms'] / B} a binding), device {e['device_ms']} ms, "
+                f"host {e['host_ms']} ms, bound "
+                f"{e['bytes'] / HBM_BYTES_PER_S * 1e3} ms")
+    missing = sorted(set(BATCHED) - set(out))
+    check(not missing, f"no recorded call of {missing}")
+    log(f"batched instances at B = {', '.join(map(str, BATCH_SIZES))}: "
+        "equal to the batched plain versions"
+        + (", every slot the scalar kernel's bit for bit"
+           if dev.type == "cuda" else ""))
+    return out
+
+
+def batched_race_checks(dev) -> float:
+    """The batched look-back scan under many tiles a binding: 2^22 + 37
+    rows (2^16 + 37 in a CPU rehearsal), B = 8 masks at densities 0 to 1,
+    capacity a third of the densest count, with translate, 20 calls each
+    against one plain answer.  Returns the max error."""
+    import torch
+
+    kc = kmod("compact")
+    g = torch.Generator().manual_seed(2)
+    n = (1 << 22) + 37 if dev.type == "cuda" else (1 << 16) + 37
+    reps = 20 if dev.type == "cuda" else 1
+    dens = torch.linspace(0.0, 1.0, 8)[:, None]
+    mask = (torch.rand(8, n, generator=g) < dens).to(dev)
+    cap = max(n // 3, 1)
+    want = kc.compact_batched_plain(mask, cap, True)
+    err = 0.0
+    for r in range(reps):
+        err = max(err, max_err(kc.compact_batched(mask, cap, translate=True),
+                               want, f"compact_batched many tiles #{r}"))
+    log(f"batched compaction, 8 bindings of {n} rows "
+        f"({-(-n // kc.TILE_ROWS)} tiles each): {reps} calls equal to the "
+        "plain version")
+    return err
+
+
+def one_launch_a_call(name: str, fn, memsets: int) -> dict:
+    """`profile_call(fn)` of calls that each made one kernel launch and
+    `memsets` memsets, counted in the host's runtime calls, or fail.  On
+    the device a window must record some kernel and no more kernels or
+    memsets than that; a window that recorded fewer than every call's is
+    taken again, up to three windows, and logs when each launch was made
+    and each recorded kernel began.  If every window lost events, the
+    last one's device time stands as recorded, flagged
+    `device_events_lost`."""
+    for _ in range(3):
+        p = profile_call(fn, times=True)
+        times = {k: p.pop(k) for k in ("launch_us", "kernel_us")}
+        check(p["api_launches_per_call"] == 1
+              and p["api_memsets_per_call"] == memsets,
+              f"{name}: {p['api_launches_per_call']} launches, "
+              f"{p['api_memsets_per_call']} memsets a call")
+        check(0 < p["kernels_per_call"] <= 1
+              and p["memsets_per_call"] <= memsets,
+              f"{name}: {p['kernels_per_call']} kernels, "
+              f"{p['memsets_per_call']} memsets a call on the device")
+        p["device_events_lost"] = (p["kernels_per_call"] < 1
+                                   or p["memsets_per_call"] < memsets)
+        if not p["device_events_lost"]:
+            log(f"{name}: one kernel and {memsets} memsets a call")
+            return p
+        log(f"{name}: the profiler recorded {p['kernels_per_call']} "
+            f"kernels and {p['memsets_per_call']} memsets a call; launch "
+            f"calls at {times['launch_us']} µs, kernels began at "
+            f"{times['kernel_us']} µs")
+    log(f"{name}: one launch a call; device time as recorded, with events "
+        "lost")
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -1295,13 +1647,30 @@ def overflow_plan():
                 AggSpec("c", "count")])
 
 
-def serving_path(db, answers, counters, args) -> None:
+def param_overflow_plan():
+    """count and sum over `l_quantity < qmax` squeezed through a
+    hand-planted 64-row compaction point: a binding's qmax decides
+    whether its slot overflows."""
+    from repro_torch.core.expr import Cmp, Param, col
+    from repro_torch.core.ir import Agg, AggSpec, Compact, Scan, Select
+
+    sel = Select(Scan("lineitem"),
+                 Cmp("<", col("l_quantity"), Param("qmax", "float32")))
+    return Agg(Compact(sel, 64), [],
+               [AggSpec("s", "sum", col("l_extendedprice")),
+                AggSpec("c", "count")])
+
+
+def serving_path(db, answers, counters, bcounters, args) -> dict:
     """The runtime and serving layer on the card at opt-pallas: (a) a plan
     cache over the six parameterized queries, default then alternative
-    bindings, (b) execute_many, (c) a forced overflow and its feedback
-    re-plan, (d) the tiered cache, (e) the query server, (f) the chaos
-    harness, (g) warm state saved and loaded, (h) device memory.  Logs
-    a line of numbers a step."""
+    bindings, (b) the batched pass (run_many of 64 bindings a plan, its
+    launches read around it) and execute_many, run_many and run at 1, 4,
+    16 and 64 bindings, a planted overflow in one slot, (c) a forced
+    overflow and its feedback re-plan, (d) the tiered cache, (e) the
+    query server, (f) the chaos harness, (g) warm state saved and loaded,
+    (h) device memory.  Logs a line of numbers a step; returns the
+    batched pass's launches by batched instance."""
     import dataclasses
     import shutil
     import tempfile
@@ -1402,11 +1771,10 @@ def serving_path(db, answers, counters, args) -> None:
     log("serve q6 specialize: " + json.dumps(report["q6 specialize"]))
     log(f"plan cache: {cache.stats}")
 
-    # -- (b) execute_many and run_many against run --------------------------
-    # three ways to answer n bindings, each timed as the least of 3 passes:
-    # the cache's execute_many (keying every binding, then one run_many),
-    # the entry's own run_many (n staged walks, one read of the counts)
-    # and n run calls (a read of the counts each)
+    # -- (b) the batched pass: run_many of 64 bindings a plan ---------------
+    # each plan's 64 bindings (default and alternative in turn) as one
+    # batched pass, the launch counters set to 0 before the six passes and
+    # read after them: every call site one launch for all 64 bindings
     def least_ms(fn, reps=3):
         best = None
         for _ in range(reps):
@@ -1416,32 +1784,120 @@ def serving_path(db, answers, counters, args) -> None:
             best = ms if best is None else min(best, ms)
         return best, got
 
-    for q in ("q6", "q12"):
+    big = max(RUN_MANY_SIZES)
+    entries, passes = {}, {}
+    if cuda:
+        peak_a = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    for d, k in bcounters.values():
+        d[k] = 0
+    for q in shapes:
         cq, _rt = cache.get(plan[q](), S, binds[q]["default"])
         rts = [{k: b[k] for k in cq.param_spec}
                for b in (binds[q]["default"], binds[q]["alt"])]
-        for n in (1, 4, 16):
+        before, bbefore = snapshot(), {n: d[k] for n, (d, k)
+                                       in bcounters.items()}
+        e0, o0 = cq.n_executions, cq.n_overflows
+        passes[q] = cq.run_many([rts[i % 2] for i in range(big)])
+        got = launched(before)
+        for name, (d, k) in bcounters.items():
+            if d[k] > bbefore[name]:
+                base = BATCHED_OF[name]
+                got[base] = got.get(base, 0) + d[k] - bbefore[name]
+        check(cq.n_executions - e0 == 1,
+              f"run_many {q} x{big}: {cq.n_executions - e0} executions")
+        check(cq.n_overflows == o0, f"run_many {q} x{big}: an overflow")
+        if cuda:
+            check(got == LAUNCHES_SF1_PARAM[q],
+                  f"run_many {q} x{big}: launches {got}, one pass of the "
+                  f"reference's {LAUNCHES_SF1_PARAM[q]}")
+        log(f"run_many {q} x{big}: one execution, launches {got}")
+        entries[q] = (cq, rts)
+    batched_launched = {n: d[k] for n, (d, k) in bcounters.items()}
+    log(f"batched pass launches: {json.dumps(batched_launched)}")
+    if cuda:
+        report["batched_pass_peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"batched pass ({big} bindings of each plan): peak device "
+            f"memory {report['batched_pass_peak_bytes']} bytes")
+    if cuda:
+        idle = [n for n, v in batched_launched.items() if v == 0]
+        check(not idle, f"never launched in the batched pass: {idle}")
+    report["batched_launches"] = batched_launched
+
+    # every slot against `run` of its binding (and the CPU's answer), then
+    # at each of RUN_MANY_SIZES the executions run_many takes, and ms a
+    # binding: the cache's execute_many (keying every binding, then one
+    # run_many), the entry's own run_many, one batched pass whatever the
+    # number, and n `run` calls, each the least of 3
+    for q in shapes:
+        cq, rts = entries[q]
+        singles = [cq.run(r) for r in rts]
+        for i, g in enumerate(passes[q]):
+            assert_same(g, singles[i % 2], False, f"run_many {q} {big}[{i}]")
+            assert_same(g, answers[q, ("default", "alt")[i % 2]],
+                        q in SORT_INSENSITIVE,
+                        f"run_many {q} {big}[{i}] against the CPU")
+        for n in RUN_MANY_SIZES:
             bl = [(binds[q]["default"], binds[q]["alt"])[i % 2]
                   for i in range(n)]
             rl = [rts[i % 2] for i in range(n)]
+            e0 = cq.n_executions
+            cq.run_many(rl)
+            walks = n < compile_mod.BATCH_MIN
+            want_e = n if walks else -(-n // compile_mod.BATCH_MAX)
+            check(cq.n_executions - e0 == want_e,
+                  f"run_many {q} x{n}: {cq.n_executions - e0} executions, "
+                  f"not {want_e}")
             many_ms, many = least_ms(
                 lambda: cache.execute_many(plan[q](), S, bl))
             rmany_ms, rmany = least_ms(lambda: cq.run_many(rl))
-            runs_ms, singles = least_ms(lambda: [cq.run(r) for r in rl])
-            for i, (g, r, w) in enumerate(zip(many, rmany, singles)):
-                assert_same(g, w, False, f"execute_many {q} {n}[{i}]")
-                assert_same(r, w, False, f"run_many {q} {n}[{i}]")
-                assert_same(g, answers[q, ("default", "alt")[i % 2]],
-                            q in SORT_INSENSITIVE,
-                            f"execute_many {q} {n}[{i}] against the CPU")
+            pass_ms, one_pass = least_ms(lambda: cq.run_batched(rl))
+            runs_ms, _ = least_ms(lambda: [cq.run(r) for r in rl])
+            for i, (g, r, p1) in enumerate(zip(many, rmany, one_pass)):
+                assert_same(g, singles[i % 2], False,
+                            f"execute_many {q} {n}[{i}]")
+                assert_same(r, singles[i % 2], False,
+                            f"run_many {q} {n}[{i}]")
+                assert_same(p1, singles[i % 2], False,
+                            f"run_batched {q} {n}[{i}]")
             report[f"{q} execute_many {n}"] = {
                 "ms_per_binding": many_ms / n,
                 "run_many_ms_per_binding": rmany_ms / n,
+                "run_many_takes": "walks" if walks else "passes",
+                "pass_ms_per_binding": pass_ms / n,
                 "run_ms_per_binding": runs_ms / n}
             log(f"execute_many {q} x{n}: {many_ms / n:.3f} ms a binding, "
-                f"run_many {rmany_ms / n:.3f}, {n} runs "
-                f"{runs_ms / n:.3f} ms a binding (least of 3)")
-        del cq
+                f"run_many {rmany_ms / n:.3f} ("
+                + ("scalar walks" if walks else "batched") + "), one pass "
+                f"{pass_ms / n:.3f}, {n} runs {runs_ms / n:.3f} ms a "
+                "binding (least of 3)")
+    del entries, passes
+
+    # a hand-planted 64-row point that one slot of 64 overflows: that slot
+    # alone re-runs, through the twin, in one batched pass of its own
+    qplan = param_overflow_plan()
+    lo = {"qmax": 1.0}                 # l_quantity < 1: no row
+    hi = {"qmax": 26.0}                # about half of lineitem
+    cq = CompiledQuery(qplan, db, S, params=lo, device=device)
+    bl = [hi if i == 17 else lo for i in range(big)]
+    got = cq.run_many(bl)
+    ref_q = CompiledQuery(param_overflow_plan(), db, preset("opt"),
+                          params=lo, device="cpu")
+    want = {name: ref_q.run(b) for name, b in (("lo", lo), ("hi", hi))}
+    check(cq.n_overflows == 1 and cq.n_executions == 1,
+          f"planted overflow: {cq.n_overflows} overflows, "
+          f"{cq.n_executions} executions")
+    check(cq._fallback is not None and cq._fallback.n_executions == 1,
+          "planted overflow: the twin did not run once")
+    for i, g in enumerate(got):
+        assert_same(g, want["hi" if i == 17 else "lo"], False,
+                    f"planted overflow [{i}]")
+    check(int(want["hi"]["c"][0]) > 64,
+          "planted overflow: the large slot fits")
+    log(f"planted overflow in slot 17 of {big}: one overflow, the twin ran "
+        f"once, {int(want['hi']['c'][0])} rows there, every slot equal to "
+        "the CPU")
+    del cq, ref_q
 
     # -- (c) a forced overflow and the feedback re-plan ---------------------
     s_over = dataclasses.replace(S, compact_replan_after=1)
@@ -1559,12 +2015,13 @@ def serving_path(db, answers, counters, args) -> None:
         torch.cuda.synchronize()
         report["memory"] = {
             "before_bytes": mem_before,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_bytes": max(peak_a, torch.cuda.max_memory_allocated()),
             "after_close_bytes": torch.cuda.memory_allocated()}
         log("serving memory: " + json.dumps(report["memory"]))
         check(report["memory"]["after_close_bytes"]
               <= mem_before + (64 << 20),
               "closing the caches and servers left device memory held")
+    return batched_launched
 
 
 # ---------------------------------------------------------------------------
@@ -2810,6 +3267,7 @@ def main() -> int:
         f"{db.table('lineitem').nrows} rows, {time.perf_counter() - t0:.1f} s")
     answers, all_records = cpu_answers(db, QUERIES)
     served = param_answers(db)
+    brecords = batched_records(db)
     records = [r for r in all_records if r[0] in SLICE]
     seen = {(q, e) for q, e, _a, _k in records}
     for q, e in [("q1", "filter_agg_query"), ("q3", "compact_query"),
@@ -2838,6 +3296,19 @@ def main() -> int:
                     for _l, G, cols, pred, vfns, gfn in nonfinite_cases(dev)]
         sources.append(kc.pred_source({"x": torch.zeros(1, device=dev)},
                                       [0.5], tile_predicate()))
+        # the batched instances the bind-many pass reaches (one binding's
+        # views: a column's dtype and stride are all the source needs)
+        for _q, name, a, _k in brecords:
+            if name in ("compact_pred_batched",
+                        "selective_filter_agg_batched"):
+                cols, _fp, _ip, kinds, pred, *rest = a
+                views = {k: v[0] if v.ndim == 2 else v
+                         for k, v in cols.items()}
+                sources.append(
+                    kc.pred_batch_source(views, kinds, pred)
+                    if name == "compact_pred_batched"
+                    else kf.selective_batch_source(views, kinds, pred,
+                                                   *rest))
         for p in build.build_all(sources):
             ptx = [ln for ln in p.with_suffix(".log").read_text().splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -2859,6 +3330,14 @@ def main() -> int:
         checks["filter_agg"]["max_abs_err"], repair_checks(db, dev))
     nonfinite_checks(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 4c -----------------------------------------------------------
+    t0 = time.perf_counter()
+    bchecks = batched_checks(brecords, dev, timed=not args.rehearse)
+    bchecks["compact_batched"]["max_abs_err"] = max(
+        bchecks["compact_batched"]["max_abs_err"], batched_race_checks(dev))
+    del brecords
+    log(f"batched instances: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 4b -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2891,7 +3370,9 @@ def main() -> int:
     t0 = time.perf_counter()
     for d, k in counters.values():
         d[k] = 0
-    serving_path(db, served, counters, args)
+    bcounters = {name: (kmod(spec[0]).launches, name)
+                 for name, spec in BATCHED.items()}
+    batched_launched = serving_path(db, served, counters, bcounters, args)
     serving_launched = {name: d[k] for name, (d, k) in counters.items()}
     log(f"serving path launches: {json.dumps(serving_launched)}")
     if not args.rehearse:
@@ -2952,6 +3433,24 @@ def main() -> int:
             "rows": c["n"], "bytes": c["bytes"],
             "path": "engine" if name in ENGINE_KERNELS
             else f"library surface ({c['shape']})"})
+    for name in BATCHED:
+        c = bchecks[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES[BATCHED_OF[name]],
+            "replaces": REPLACES[BATCHED_OF[name]] + " (vmapped)",
+            "launches": batched_launched[name],
+            "max_abs_err": c["max_abs_err"], "ms": c.get("ms"),
+            "device_ms": c.get("device_ms"),
+            "kernels_per_call": c.get("kernels_per_call"),
+            "memsets_per_call": c.get("memsets_per_call"),
+            "host_ms": c.get("host_ms"), "plain_ms": c.get("plain_ms"),
+            "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": c.get("library_ms"),
+            "rows": c["n"],
+            "bindings": c["B"], "bytes": c["bytes"],
+            "device_events_lost": c.get("device_events_lost"),
+            "path": f"engine, batched pass ({c['query']}'s call)"})
     log(json.dumps({"kernels": rows}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if args.rehearse:

@@ -41,7 +41,7 @@ class TorchBackend:
     def segment_sum(data, ids, n):
         out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
                           device=data.device)
-        return out.index_add_(0, ids.clamp(0, n - 1), data)
+        return out.index_add(0, ids.clamp(0, n - 1), data)
 
     @staticmethod
     def _segment_reduce(data, ids, n, fill, how):
@@ -52,8 +52,8 @@ class TorchBackend:
             ids = ids.view((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
         # include_self=False: a segment that receives rows reduces over
         # them alone, one that receives none keeps `fill`
-        return out.scatter_reduce_(0, ids, data, reduce=how,
-                                   include_self=False)
+        return out.scatter_reduce(0, ids, data, reduce=how,
+                                  include_self=False)
 
     @classmethod
     def segment_max(cls, data, ids, n, fill):
@@ -102,7 +102,7 @@ class TorchBackend:
         count = c[-1]
         slots = torch.arange(1, capacity + 1, dtype=torch.int32,
                              device=mask.device)
-        idx = torch.searchsorted(c, slots, out_int32=True).clamp_(0, n - 1)
+        idx = torch.searchsorted(c, slots, out_int32=True).clamp(0, n - 1)
         return torch.where(slots <= count, idx, 0), count
 
     @staticmethod

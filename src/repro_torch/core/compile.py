@@ -30,14 +30,24 @@ harvested by `PlanCache`'s feedback store, which re-plans capacities
 from measured headroom after repeated overflows and shrinks them after
 sustained underuse.
 
-Bind-many: `run_many(bindings_list)` enqueues the N staged walks one
-after the other on the device's current stream, reads the point counts
-of all N in one device-to-host copy, and decodes; only the slots whose
-capacity overflowed re-run, through the twin.  Unlike the reference,
-which runs N bindings as one vmapped XLA program padded to a power-of-two
-bucket, there is no trace to amortise in eager torch, so nothing is
-padded (`pads_batches = False`) and each binding is one staged walk;
-each slot's answer is `run(bindings_list[i])`'s.
+Bind-many: `run_many(bindings_list)` runs N bindings as batched passes
+of at most BATCH_MAX bindings, each ONE staged walk under
+`torch.func.vmap` (the counterpart of the reference's vmapped
+`fn_many`); below BATCH_MIN bindings it runs one scalar walk a binding
+instead, which costs less there.  In a pass the `param/<name>` inputs
+are (N,) tensors on the query's device, bound in one host-to-device
+copy, and vmap batches them; the base columns and index structures are not mapped (their
+resident tensors enter the walk once, shared by every binding).  Every
+operator's torch ops carry the binding axis through vmap's batching
+rules, and each engine kernel's custom operator through its vmap rule
+(`kernels/ops.py`): one launch a call site for all N bindings.  The
+point counts come out as (N,) vectors, read in one device-to-host copy;
+only the slots whose capacity overflowed re-run, through the twin's
+`run_many` of their bindings.  Each slot's answer is
+`run(bindings_list[i])`'s.  Unlike the reference, which pads N to a
+power-of-two bucket so that it retraces at most log2(N) times, eager
+torch has no trace to amortise, so nothing is padded (`pads_batches =
+False`).  `run` keeps the scalar walk, its parameters host scalars.
 
 Sharded execution (`Settings.shards != 1`): the Sharding pass partitions
 the partition root and the tables routed to it over a 1-D data mesh
@@ -49,7 +59,9 @@ counterpart of the reference's `shard_map`); the collectives combine in
 rank order, so every shard's output is the same, and shard 0's is the
 result.  Each point's count is an `(n_shards,)` vector, read in the same
 one device-to-host copy; overflow and the scalar feedback key off the
-worst shard, and `observed_shard` keeps the per-shard maxima.
+worst shard, and `observed_shard` keeps the per-shard maxima.  A
+sharded `run_many` runs one sharded walk a binding (the reference
+composes its batched form under the shard map; the port does not yet).
 """
 from __future__ import annotations
 
@@ -84,6 +96,15 @@ _SAMPLE = 8
 # benchmarks/bench_torch_result_copy.py, PERF.md §5
 DEVICE_SELECT_ROWS = 1 << 16
 
+# bind-many by the number of bindings N (`run_many`), from the card's
+# measurements (`chip_smoke.py` phase 7 (b), PERF.md §5): below
+# BATCH_MIN bindings N scalar walks cost less than one batched pass
+# (vmap's wrapping costs host time a pass); a pass takes at most
+# BATCH_MAX bindings, the largest measured, so that its device memory
+# (which grows with N) stays within the measured pass's
+BATCH_MIN = 3
+BATCH_MAX = 64
+
 # stagings in this process: one per CompiledQuery construction.  The
 # runtime layer's tests read it to show that re-binding parameters stages
 # nothing; a server stages on its pool threads, hence the lock.
@@ -111,7 +132,8 @@ class CompiledQuery:
     Compile-time params (string values, Limit.n) must have been
     substituted before construction — pass `bindings` to `optimize`."""
 
-    # tiering.Runnable surface: a batch is N staged walks, never padded
+    # tiering.Runnable surface: a batch is vmapped staged walks (or
+    # scalar ones below BATCH_MIN), never padded
     pads_batches = False
 
     def __init__(self, plan: ir.Plan, db: Database, settings: Settings,
@@ -166,7 +188,8 @@ class CompiledQuery:
         self._fallback: Optional["CompiledQuery"] = None
         self._fallback_lock = threading.Lock()
         self.n_overflows = 0      # executions (or batch slots) that fell back
-        self.n_executions = 0     # staged walks run by run() / run_many()
+        # staged walks run by run() / run_many(): one a batched pass
+        self.n_executions = 0
         # feedback state, harvested by PlanCache: the all-time max true
         # count per point, and the current run of consecutive executions
         # with every point under a quarter of its capacity, with its
@@ -284,13 +307,17 @@ class CompiledQuery:
 
     def compile(self) -> float:
         """Build every kernel library the staged walk reaches: one walk
-        under the construction-time bindings, then wait for the device.
-        A plan's first run at `opt-pallas` otherwise pays `nvcc` for each
-        generated predicate it has not met yet.  The walk is not an
-        execution: nothing is observed or counted.  Returns (and keeps
-        as `compile_time`) its seconds."""
+        under the construction-time bindings and, for a plan with
+        parameters, one batched pass of them (the batched instances of
+        `run_many`), then wait for the device.  A plan's first run at
+        `opt-pallas` otherwise pays `nvcc` for each generated predicate
+        it has not met yet.  The walks are not executions: nothing is
+        observed or counted.  Returns (and keeps as `compile_time`) its
+        seconds."""
         t0 = time.perf_counter()
         self.execute(self.bind())
+        if self.param_spec and self._mesh is None:
+            self.execute_many(self.bind_many([self.param_defaults]))
         self._synchronize()
         self.compile_time = time.perf_counter() - t0
         return self.compile_time
@@ -385,15 +412,17 @@ class CompiledQuery:
                 if c > self.observed_max.get(pid, -1):
                     self.observed_max[pid] = c
 
-    def _observe(self, slot_counts: list[dict], n_overflows: int) -> None:
-        """Feedback accounting for a list of per-execution true-count
-        dicts, `n_overflows` of which overflowed: the execution and
-        overflow counters, the all-time max per point, plus the
-        consecutive-underuse streak and its window max (the shrink signal
-        decays: a historical spike must not pin capacity up).  Under the
-        lock: a server runs one query from several threads."""
+    def _observe(self, slot_counts: list[dict], n_overflows: int,
+                 executions: int) -> None:
+        """Feedback accounting for a list of per-execution (or per-slot)
+        true-count dicts, `n_overflows` of which overflowed, from
+        `executions` staged walks: the execution and overflow counters,
+        the all-time max per point, plus the consecutive-underuse streak
+        and its window max (the shrink signal decays: a historical spike
+        must not pin capacity up).  Under the lock: a server runs one
+        query from several threads."""
         with self._obs_lock:
-            self.n_executions += len(slot_counts)
+            self.n_executions += executions
             self.n_overflows += n_overflows
             for counts in slot_counts:
                 oflow = False
@@ -472,9 +501,17 @@ class CompiledQuery:
             counts = [{pid: int(v.max()) for pid, v in c.items()}
                       for c in counts]
         bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
-        self._observe(counts, len(bad))
+        self._observe(counts, len(bad), len(runs))
         results = [None if i in bad else self._result(out, mask)
                    for i, (out, mask, _c) in enumerate(runs)]
+        return self._rerun(bindings_list, bad, results)
+
+    def _rerun(self, bindings_list: list, bad: list[int],
+               results: list) -> list:
+        """Fill the overflowing slots `bad` of `results` from the twin:
+        one `run_many` of their bindings (the compacted frames dropped
+        rows; the twin's probes report every site's TRUE count, folded
+        back for the feedback store)."""
         if bad:
             twin = self._fallback_query()
             redo = twin.run_many([bindings_list[i] for i in bad])
@@ -484,29 +521,123 @@ class CompiledQuery:
         return results
 
     def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
-        return self.run_many([params])[0]
+        """One binding through the scalar staged walk (parameters as host
+        scalars)."""
+        return self._walks([params])[0]
+
+    def _walks(self, bindings_list: list) -> list[dict[str, np.ndarray]]:
+        """One scalar staged walk a binding, enqueued back to back, their
+        point counts read in one copy, then settled."""
+        runs = [self.execute(self.bind(b)) for b in bindings_list]
+        return self._settle(bindings_list, runs, self._counts_to_host(
+            [c for *_f, c in runs]))
 
     def run_many(self, bindings_list) -> list[dict[str, np.ndarray]]:
-        """N bindings: the N staged walks enqueued back to back, their
-        point counts read in one copy, then each result decoded.  Returns
-        one result per binding, in order, each equal to
+        """N bindings as batched passes (the module docstring): each pass
+        one staged walk under vmap of at most BATCH_MAX bindings (the
+        passes of one call differ in size by one at most), its
+        (N,) point counts read in one copy, then each slot decoded; below
+        BATCH_MIN bindings, and on a mesh, one scalar walk a binding.
+        Returns one result per binding, in order, each equal to
         `run(bindings_list[i])`; a None binding means the construction-
         time bindings.  Only overflowing slots re-run, through the twin.
         A plan with no runtime parameters runs once and returns
         independent copies (a caller may mutate its result in place)."""
         bindings_list = list(bindings_list)
-        inputs = [self.bind(b) for b in bindings_list]   # validates all
+        merged = [self._check_bindings(b) for b in bindings_list]
+        if not bindings_list:
+            return []
         if not self.param_spec:
-            inputs = inputs[:1]
-        runs = [self.execute(i) for i in inputs]
-        del inputs
-        results = self._settle(bindings_list, runs,
-                               self._counts_to_host([c for *_f, c in runs]))
-        del runs
-        if results and len(results) < len(bindings_list):
-            results += [{k: np.copy(v) for k, v in results[0].items()}
-                        for _ in bindings_list[1:]]
+            res = self.run(bindings_list[0])
+            return [res] + [{k: np.copy(v) for k, v in res.items()}
+                            for _ in bindings_list[1:]]
+        if self._mesh is not None or len(merged) < BATCH_MIN:
+            return self._walks(bindings_list)
+        # passes of at most BATCH_MAX bindings, of equal size within one
+        # (so none falls below BATCH_MIN)
+        k = -(-len(merged) // BATCH_MAX)
+        cuts = [len(merged) * i // k for i in range(k + 1)]
+        results = []
+        for a, b in zip(cuts, cuts[1:]):
+            results += self._pass(bindings_list[a:b], merged[a:b])
         return results
+
+    def run_batched(self, bindings_list) -> list[dict[str, np.ndarray]]:
+        """The bindings as ONE batched pass, whatever their number (the
+        pass `run_many` takes from BATCH_MIN bindings on)."""
+        bindings_list = list(bindings_list)
+        if not self.param_spec or self._mesh is not None:
+            raise ValueError("a batched pass needs runtime parameters and "
+                             "no mesh")
+        return self._pass(bindings_list,
+                          [self._check_bindings(b) for b in bindings_list])
+
+    def _pass(self, bindings_list: list, merged: list[dict]) -> list:
+        """One batched pass of the bindings (`merged`: their checked
+        values), settled: the slots that overflowed re-run through the
+        twin."""
+        out, mask, counts = self.execute_many(self.bind_many(merged))
+        slot_counts = self._batch_counts_to_host(counts, len(merged))
+        bad = [i for i, c in enumerate(slot_counts) if self._overflowed(c)]
+        self._observe(slot_counts, len(bad), 1)
+        good = sorted(set(range(len(merged))) - set(bad))
+        results: list = [None] * len(merged)
+        for i, r in zip(good, self._results_many(out, mask, good)):
+            results[i] = r
+        del out, mask
+        return self._rerun(bindings_list, bad, results)
+
+    def bind_many(self, merged: list[dict]) -> dict:
+        """The `param/<name>` inputs of a batched pass: each parameter's
+        (N,) vector of its dtype, on the query's device, from one
+        host-to-device copy of every parameter's bytes (wider dtypes
+        first, so that each vector starts aligned to its item)."""
+        names = sorted(self.param_spec,
+                       key=lambda n: -np.dtype(self.param_spec[n]).itemsize)
+        arrays = [np.asarray([m[n] for m in merged],
+                             dtype=self.param_spec[n]) for n in names]
+        raw = torch.from_numpy(np.concatenate(
+            [a.view(np.uint8) for a in arrays])).to(self.device)
+        out, at = {}, 0
+        for name, a in zip(names, arrays):
+            out[f"param/{name}"] = raw[at:at + a.nbytes].view(
+                getattr(torch, a.dtype.name))
+            at += a.nbytes
+        return out
+
+    def execute_many(self, pvec: dict):
+        """The batched staged walk over `bind_many`'s parameter vectors:
+        (columns, mask, per-point counts), each with the N bindings in
+        front, on the device, nothing synchronized.  The resident inputs
+        are closed over, so vmap maps the parameters alone."""
+        resident = self.resident
+        return torch.func.vmap(
+            lambda p: self._walk({**resident, **p}, self.device),
+            randomness="error")(pvec)
+
+    def _batch_counts_to_host(self, counts: dict, n: int) -> list[dict]:
+        """Every slot's point counts from the batched walk's (N,) vectors
+        in ONE device-to-host copy."""
+        if not counts:
+            return [{} for _ in range(n)]
+        vals = torch.stack([torch.as_tensor(c, device=self.device)
+                            .reshape(n).to(torch.int64)
+                            for c in counts.values()]).cpu().numpy()
+        return [{pid: int(vals[k, i]) for k, pid in enumerate(counts)}
+                for i in range(n)]
+
+    def _results_many(self, out: dict, mask, slots: list[int]) -> list:
+        """The decoded results of the batched walk's `slots`.  A frame
+        the result copy would cut on the device is cut a slot at a time;
+        a smaller one is copied whole, every slot at once."""
+        if not slots:
+            return []
+        if mask.shape[1] > DEVICE_SELECT_ROWS:
+            return [self._result({k: v[i] for k, v in out.items()}, mask[i])
+                    for i in slots]
+        host, hmask = whole_to_host(out, mask)
+        return [_decode_frame({k: v[i] for k, v in host.items()}, hmask[i],
+                              self.out_meta) for i in slots]
 
     def input_nbytes(self) -> int:
         return int(sum(v.nbytes for v in self.inputs.values()))

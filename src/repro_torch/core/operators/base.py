@@ -126,7 +126,11 @@ class StageCtx:
     def param(self, p: Param):
         """A runtime parameter as a Python scalar of its dtype: torch
         combines it with tensors on any device, and a kernel takes it as a
-        plain scalar argument without a device round trip."""
+        plain scalar argument without a device round trip.  In the
+        batched walk (`CompiledQuery.run_many`, under `torch.func.vmap`)
+        the bound input is a 0-d tensor that vmap batches over the
+        bindings, and it stays one: a host scalar cannot vary by
+        binding."""
         if p.dtype == "str":
             raise TypeError(f"string parameter {p.name!r} must be bound at "
                             "compile time (it has no runtime representation)")
@@ -138,6 +142,8 @@ class StageCtx:
         if getattr(v, "ndim", 0) != 0:
             raise TypeError(f"param/{p.name} must reach operators as a "
                             f"scalar (got shape {v.shape})")
+        if isinstance(v, torch.Tensor):
+            return v
         return v.item() if hasattr(v, "item") else v
 
     def note_compact(self, point_id: str, count) -> None:

@@ -735,8 +735,9 @@ class PlanCache:
     # -- batched execution -----------------------------------------------------
     def run_many(self, cq: CompiledQuery, runtime_list) -> list:
         """`cq.run_many` with the compaction accounting of its
-        executions.  Nothing is padded in the port (N bindings are N
-        staged walks), so there is no pad-slot or retrace count."""
+        executions.  Nothing is padded in the port (N bindings are batched
+        staged walks, with no trace to amortise), so there is no pad-slot
+        or retrace count."""
         runtime_list = list(runtime_list)
         results = cq.run_many(runtime_list)
         self._note_compaction(cq, len(runtime_list))

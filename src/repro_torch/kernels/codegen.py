@@ -23,7 +23,12 @@ truncates where Python's `//` floors (see `year_of_days`).
 
 Parameters become scalar members of the functor, filled from the
 launch's arguments, so rebinding a parameter never changes the source and
-never rebuilds the kernel.
+never rebuilds the kernel.  The batched instances (the engine's bind-many
+pass: one launch for B bindings, the binding in blockIdx.y) wrap the
+functor in `struct Batch`, whose `at(b)` gives binding b's functor: each
+column pointer moved by its binding stride (0 for a column every binding
+shares) and each parameter read from a device vector at the binding's
+index.  A batched instance is a library of its own.
 
 A column may be a strided view (under the row layout, a column of a
 record matrix): its element stride is baked into the load as a constant,
@@ -66,7 +71,19 @@ def _int_literal(v: int) -> str:
     return str(v) if v != -(2**31) else "(-2147483647 - 1)"
 
 
+_KINDS = ("float", "int", "bool")
+
+
 def _scalar_type(v) -> str:
+    """The C kind of a kernel parameter: of a Python or numpy scalar, of a
+    0-d or (B,) tensor by its dtype, or a kind name itself (the batched
+    wrappers, whose parameters are device vectors)."""
+    if isinstance(v, str) and v in _KINDS:
+        return v
+    if hasattr(v, "dtype") and hasattr(v, "is_floating_point"):   # tensor
+        if v.dtype.is_floating_point:
+            return "float"
+        return "bool" if str(v.dtype) == "torch.bool" else "int"
     if isinstance(v, (bool, np.bool_)):
         return "bool"
     if isinstance(v, (int, np.integer)):
@@ -199,6 +216,44 @@ class Emitter:
         return out
 
 
+    def batch_struct(self) -> list[str]:
+        """`struct Batch` around `Src` (emitted after it): binding b's
+        functor is `at(b)`, its columns `cs[k]` elements past binding 0's
+        and its parameters read from `fp` / `ip` (float params as double,
+        the others as long long, positional per kind, as in `fill`) at row
+        b, rows `fps` / `ips` apart (0: one row for every binding)."""
+        out = ["struct Batch {", "  Src s;",
+               f"  long long cs[{max(len(self.cols), 1)}];",
+               "  const double* fp;", "  long long fps;",
+               "  const long long* ip;", "  long long ips;",
+               "  __device__ __forceinline__ Src at(int b) const {",
+               "    Src r = s;"]
+        out += [f"    r.c{k} = s.c{k} + (long long)b * cs[{k}];"
+                for k in range(len(self.cols))]
+        nf = ni = 0
+        for k, p in enumerate(self.params):
+            t = self.param_types[p]
+            if t == "float":
+                out.append(f"    r.p{k} = (float)fp[(long long)b * fps + "
+                           f"{nf}];")
+                nf += 1
+            else:
+                out.append(f"    r.p{k} = ({t})ip[(long long)b * ips + "
+                           f"{ni}];")
+                ni += 1
+        return out + ["    return r;", "  }", "};"]
+
+    def fill_batch(self, var: str) -> list[str]:
+        """Statements filling `Batch` `var` from the batched launcher's
+        arguments (`_BATCH_ARGS`)."""
+        out = [f"  {var}.s.c{k} = ({_POINTER[self.col_types[c]]})cols[{k}];"
+               for k, c in enumerate(self.cols)]
+        out += [f"  {var}.cs[{k}] = cstrides[{k}];"
+                for k in range(len(self.cols))]
+        return out + [f"  {var}.fp = fp;", f"  {var}.fps = fps;",
+                      f"  {var}.ip = ip;", f"  {var}.ips = ips;"]
+
+
 def column_types(cols: dict) -> dict[str, str]:
     """C element type of each column tensor, in argument order."""
     out = {}
@@ -271,7 +326,8 @@ def operand_key(cols: dict, param_names: list[str], scalars: list) -> tuple:
     """What of a call's operands the generated source depends on: each
     column's name, dtype and stride in argument order, each parameter's
     name and kind (never its value: rebinding a parameter keeps the
-    library)."""
+    library).  For a batched instance, `cols` are one binding's views;
+    the callers add the instance's kind to the key."""
     return (tuple((name, str(t.dtype), t.stride(0) if t.ndim == 1 else 0)
                   for name, t in cols.items()),
             tuple(param_names), tuple(_scalar_type(v) for v in scalars))
@@ -292,6 +348,9 @@ def split_scalars(param_names: list[str], scalars: list
 _HEADER = "// Generated by repro_torch/kernels/codegen.py from plan " \
           "expressions.\n"
 _ARGS = "const void* const* cols, const double* fp, const long long* ip"
+_BATCH_ARGS = ("const void* const* cols, const long long* cstrides, "
+               "const double* fp, long long fps, const long long* ip, "
+               "long long ips, int B")
 
 
 def functor_source(em: Emitter, pred, values: list = (), radix=(),
@@ -343,6 +402,25 @@ def compact_pred_source(pred, em: Emitter) -> str:
         "}", ""])
 
 
+def compact_pred_batch_source(pred, em: Emitter) -> str:
+    """A library exporting `repro_compact_pred_batched`: the look-back
+    scan over B bindings of the predicate (`csrc/compact.cuh`'s binding
+    axis), one 2-D memset and one launch; binding b's workspace row is
+    `repro_compact_row_words` words past binding a's."""
+    return "\n".join([
+        _HEADER + '#include "compact.cuh"', "",
+        "namespace {", functor_source(em, pred), *em.batch_struct(),
+        "}  // namespace", "",
+        f'extern "C" int repro_compact_pred_batched({_BATCH_ARGS},',
+        "    long long n, int* ws, long long ws_words, int cap,"
+        " int translate,",
+        "    cudaStream_t stream) {",
+        "  Batch bt{};", *em.fill_batch("bt"),
+        "  return repro::compact_batch_into(bt, B, n, ws, ws_words, cap,",
+        "                                   translate != 0, stream);",
+        "}", ""])
+
+
 def selective_agg_source(pred, values: list, radix, n_groups: int,
                          em: Emitter) -> str:
     """A library exporting `repro_selective_agg`: the aggregation kernel
@@ -362,4 +440,25 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
         "  Src s{};", *em.fill("s"),
         f"  return repro::launch_agg<Src, {nv}, {n_groups}>(",
         f"      s, n, G, {nv}, nb, ws, out, ticket, mask_out, stream);",
+        "}", ""])
+
+
+def selective_agg_batch_source(pred, values: list, radix, n_groups: int,
+                               em: Emitter) -> str:
+    """A library exporting `repro_selective_agg_batched`: the selective
+    aggregation over B bindings (`csrc/filter_agg.cuh`'s binding axis,
+    capacity 0), one launch with its fold in the register regime; B result
+    rows `out_row` words apart and one ticket a binding."""
+    nv = len(values)
+    return "\n".join([
+        _HEADER + '#include "filter_agg.cuh"', "",
+        "namespace {", functor_source(em, pred, values, radix, n_groups),
+        *em.batch_struct(), "}  // namespace", "",
+        f'extern "C" int repro_selective_agg_batched({_BATCH_ARGS},',
+        "    long long n, int G, int nb, int* ws, int* out, long long out_row,",
+        "    int* ticket, cudaStream_t stream) {",
+        "  Batch bt{};", *em.fill_batch("bt"),
+        f"  return repro::launch_agg_batch<Batch, {nv}, {n_groups}>(",
+        f"      bt, B, n, G, {nv}, nb, ws, out, out_row, ticket, nullptr,"
+        " stream);",
         "}", ""])

@@ -3,6 +3,9 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 #include "expr.cuh"
@@ -10,6 +13,26 @@
 namespace repro {
 
 constexpr int kWarp = 32;
+
+// The binding axis of the engine's kernels (compact.cuh, filter_agg.cuh):
+// a kernel reads binding b's operands (b = blockIdx.y) through a binder's
+// `at(b)`, which returns the row source of that binding.  The scalar
+// launch hands every block its one source through OneBinding.
+template <class Src>
+struct OneBinding {
+  Src src;
+  __device__ __forceinline__ Src at(int) const { return src; }
+};
+
+template <class T>
+struct is_one_binding : std::false_type {};
+template <class S>
+struct is_one_binding<OneBinding<S>> : std::true_type {};
+
+// The row source a binder hands out.
+template <class Bind>
+using bound_source_t =
+    std::decay_t<decltype(std::declval<const Bind&>().at(0))>;
 
 // Sums over the warp, valid in lane 0: a shuffle tree, so a float sum is
 // added in the same order in every call.

@@ -43,6 +43,21 @@
 // clears the status words, the ticket, the total and idx, so pad slots
 // stay 0: a call is one memset and one launch.
 //
+// The binding axis (the engine's bind-many pass, torch.func.vmap over a
+// query's parameters; the reference vmaps its Pallas kernel into a batch
+// grid axis): blockIdx.y is the binding.  Each binding b has its own
+// workspace row of compact_row_words words (status, ticket, total, idx),
+// its own slot_of row, and reads its rows through `bind.at(b)`: a mask
+// `stride` bytes from the last binding's, or a generated source whose
+// columns and parameters carry a binding stride (0 where the binding
+// shares the operand, so a shared column is read from one copy).  A tile
+// draws its number from its own binding's ticket and looks back over its
+// own binding's status words only (it waits only on tiles of its binding
+// whose blocks already run, as in the scalar launch), so B bindings are
+// one 2-D memset over the B rows' heads and idx and one launch of tiles x
+// B blocks, and binding b's outputs are those of the launch over binding
+// b alone.
+//
 // Bound on the card: bytes.  The mask (1 B/row), or the columns the
 // predicate reads, is read once; 4 B are written per kept row (+4 B/row
 // of slot_of with translate).
@@ -67,6 +82,15 @@ struct MaskSource {
   const uint8_t* mask;
   __device__ __forceinline__ bool pred(long long i) const {
     return mask[i] != 0;
+  }
+};
+
+// One byte mask a binding, `stride` bytes apart (0: one mask for all).
+struct MaskBatch {
+  const uint8_t* mask;
+  long long stride;
+  __device__ __forceinline__ MaskSource at(int b) const {
+    return MaskSource{mask + (long long)b * stride};
   }
 };
 
@@ -108,14 +132,24 @@ __device__ __forceinline__ int look_back(unsigned long long* status, int tile,
   return excl;
 }
 
-template <class Src>
+// Binding blockIdx.y reads `bind.at(blockIdx.y)` and writes its workspace
+// words `ws_row` words and its slot_of `slot_row` words past binding 0's
+// (both 0 in the scalar launch, whose grid has one row).
+template <class Bind>
 __global__ void __launch_bounds__(kCompactBlock)
-compact_kernel(Src src, long long n, int n_tiles,
-               unsigned long long* status, int* ticket, int* total, int* idx,
-               int cap, int* slot_of) {
+compact_kernel(Bind bind, long long n, int n_tiles, int* ws0, int* idx0,
+               int cap, int* slot0, long long ws_row, long long slot_row) {
   __shared__ int s_tile, s_offset;
   __shared__ int s_slot[kCompactSlots];      // count, then exclusive offset
   __shared__ int s_warp[kCompactWarps];
+  const long long b = blockIdx.y;
+  auto src = bind.at((int)b);
+  int* ws = ws0 + b * ws_row;
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(ws);
+  int* ticket = ws + 2 * n_tiles;
+  int* total = ticket + 1;
+  int* idx = idx0 + b * ws_row;
+  int* slot_of = slot0 != nullptr ? slot0 + b * slot_row : nullptr;
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
   __syncthreads();
@@ -200,27 +234,15 @@ inline long long compact_head_words(long long n) {
   return 2 * compact_tiles(n) + 2;
 }
 
-// The scan's own scratch at the front of `ws`: status words, ticket, total.
-struct CompactScratch {
-  unsigned long long* status;
-  int* ticket;
-  int* total;
-};
-
-inline CompactScratch compact_scratch(int* ws, long long n) {
-  const long long nb = compact_tiles(n);
-  return {reinterpret_cast<unsigned long long*>(ws), ws + 2 * nb,
-          ws + 2 * nb + 1};
-}
-
-// The one launch; the caller has cleared the scratch.
+// The one launch; the caller has cleared the scan's own scratch at the
+// front of `ws` (status words, ticket, total: compact_head_words(n)).
 template <class Src>
-int launch_compact(Src src, long long n, CompactScratch s, int* idx, int cap,
+int launch_compact(Src src, long long n, int* ws, int* idx, int cap,
                    int* slot_of, cudaStream_t stream) {
   const long long nb = compact_tiles(n);
   if (nb > 0)
-    compact_kernel<Src><<<(int)nb, kCompactBlock, 0, stream>>>(
-        src, n, (int)nb, s.status, s.ticket, s.total, idx, cap, slot_of);
+    compact_kernel<OneBinding<Src>><<<(int)nb, kCompactBlock, 0, stream>>>(
+        OneBinding<Src>{src}, n, (int)nb, ws, idx, cap, slot_of, 0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -228,6 +250,13 @@ int launch_compact(Src src, long long n, CompactScratch s, int* idx, int cap,
 inline long long compact_words(long long n, int cap, bool translate) {
   if (n < 0 || n >= INT_MAX || cap < 0) return -1;
   return compact_head_words(n) + cap + (translate ? n : 0);
+}
+
+// Words of one binding's row of a batched workspace: compact_words padded
+// to a quad, so that every row's status words stay 8-byte aligned.
+inline long long compact_row_words(long long n, int cap, bool translate) {
+  const long long w = compact_words(n, cap, translate);
+  return w < 0 ? -1 : (w + 3) / 4 * 4;
 }
 
 // The compaction of `src`'s rows in the workspace layout above: one
@@ -242,8 +271,33 @@ int compact_into(const Src& src, long long n, int* ws, long long ws_words,
       cudaMemsetAsync(ws, 0, 4 * (size_t)(head + cap), stream);
   if (err != cudaSuccess) return (int)err;
   int* idx = ws + head;
-  return launch_compact(src, n, compact_scratch(ws, n), idx, cap,
+  return launch_compact(src, n, ws, idx, cap,
                         translate ? idx + cap : nullptr, stream);
+}
+
+// B bindings: binding b's row of the layout above starts b x
+// compact_row_words words into `ws`.  One 2-D memset clears every row's
+// head and idx; one launch of tiles x B blocks.
+template <class Bind>
+int compact_batch_into(const Bind& bind, int B, long long n, int* ws,
+                       long long ws_words, int cap, bool translate,
+                       cudaStream_t stream) {
+  const long long row = compact_row_words(n, cap, translate);
+  if (row < 0 || B < 1 || B > 65535 || ws_words < row * B)
+    return (int)cudaErrorInvalidValue;
+  const long long head = compact_head_words(n);
+  cudaError_t err = cudaMemset2DAsync(ws, 4 * (size_t)row, 0,
+                                      4 * (size_t)(head + cap), (size_t)B,
+                                      stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long nb = compact_tiles(n);
+  int* idx = ws + head;
+  if (nb > 0)
+    compact_kernel<Bind><<<dim3((unsigned)nb, (unsigned)B), kCompactBlock, 0,
+                           stream>>>(bind, n, (int)nb, ws, idx, cap,
+                                     translate ? idx + cap : nullptr, row,
+                                     row);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro

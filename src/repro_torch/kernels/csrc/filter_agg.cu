@@ -31,4 +31,29 @@ int repro_filter_agg(const uint8_t* mask, const int* gidx,
       src, n, G, n_vals, nb, ws, out, ticket, nullptr, stream);
 }
 
+// B bindings (filter_agg.cuh's binding axis): each operand's binding
+// stride in elements (0: shared), `ws` B x nb partial rows, `out` B result
+// rows `out_row` words apart, `ticket` B tickets at 0.
+int repro_filter_agg_batched(const uint8_t* mask, long long mask_stride,
+                             const int* gidx, long long gidx_stride,
+                             const float* const* cols,
+                             const long long* col_strides, int n_vals, int B,
+                             long long n, int G, int nb, int* ws, int* out,
+                             long long out_row, int* ticket,
+                             cudaStream_t stream) {
+  if (n_vals < 0 || n_vals > kMaxVals) return (int)cudaErrorInvalidValue;
+  repro::ColumnBatch<kMaxVals> bind{};
+  bind.base.mask = mask;
+  bind.base.gidx = gidx;
+  bind.base.n_vals = n_vals;
+  bind.mask_stride = mask_stride;
+  bind.gidx_stride = gidx_stride;
+  for (int k = 0; k < n_vals; ++k) {
+    bind.base.cols[k] = cols[k];
+    bind.col_stride[k] = col_strides[k];
+  }
+  return repro::launch_agg_batch<repro::ColumnBatch<kMaxVals>, kMaxVals>(
+      bind, B, n, G, n_vals, nb, ws, out, out_row, ticket, nullptr, stream);
+}
+
 }  // extern "C"

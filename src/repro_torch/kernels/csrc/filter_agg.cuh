@@ -64,6 +64,20 @@
 // the partials are small, and on its own otherwise, so that a kept result
 // never holds large partials alive.  Counts and the predicate total are
 // exact int32 throughout.
+//
+// The binding axis (the engine's bind-many pass; the reference vmaps its
+// Pallas kernel into a batch grid axis): blockIdx.y is the binding, and a
+// block reads binding b's rows through `bind.at(b)` (common.cuh): each
+// operand carries a binding stride, 0 where the bindings share it, so a
+// shared column stays one copy.  Binding b writes its partials at row b x
+// gridDim.x of the workspace, its result `out_row` words past binding
+// 0's, and draws from ticket b (the caller keeps one ticket a binding for
+// each (device, stream), each left at 0 by its binding's last block).  The
+// grid's x extent is the scalar launch's (the register regime takes it
+// from the scalar instance's residency), so every binding runs the scalar
+// launch's block partition and fold order: in the register regime binding
+// b's sums are the scalar launch's on b's operands bit for bit.  B
+// bindings are one launch (two in the shared-memory regime).
 #pragma once
 
 #include <atomic>
@@ -128,6 +142,24 @@ struct ColumnSource {
 #pragma unroll
     for (int k = 0; k < MAXA; ++k)
       if (k < n_vals) v[k] = cols[k][i];
+  }
+};
+
+// The precomputed form over B bindings: each operand's binding stride in
+// elements (0: shared by every binding).
+template <int MAXA>
+struct ColumnBatch {
+  ColumnSource<MAXA> base;
+  long long mask_stride, gidx_stride;
+  long long col_stride[MAXA];
+  __device__ __forceinline__ ColumnSource<MAXA> at(int b) const {
+    ColumnSource<MAXA> s = base;
+    s.mask += b * mask_stride;
+    s.gidx += b * gidx_stride;
+#pragma unroll
+    for (int k = 0; k < MAXA; ++k)
+      if (k < s.n_vals) s.cols[k] += b * col_stride[k];
+    return s;
   }
 };
 
@@ -223,18 +255,23 @@ __device__ __forceinline__ void fold_rows(const int* ws, int rows, int* out,
 }
 
 // kMask: also store the predicate in mask_out (a separate instantiation,
-// so the engine's form pays nothing for it).  Writes partial row
-// blockIdx.x; the last block to finish folds rows 0 .. gridDim.x - 1 into
-// `out` and resets the ticket.
-template <class Src, int GM, int AM, bool kMask>
+// so the engine's form pays nothing for it).  Binding b = blockIdx.y writes
+// partial row b x gridDim.x + blockIdx.x; the last of its blocks to finish
+// folds its rows into `out` + b x out_row and resets ticket b.
+template <class Bind, int GM, int AM, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
-agg_reg_kernel(Src src, long long n, int G, int A, int* ws, int* out,
-               int* ticket, uint8_t* mask_out) {
+agg_reg_kernel(Bind bind, long long n, int G, int A, int* ws, int* out0,
+               long long out_row, int* ticket0, uint8_t* mask0) {
   constexpr int kWarps = kAggBlock / kWarp;
   static_assert(GM * AM + GM + 1 <= 4 * kFoldThreads, "a fold lane a quad");
   __shared__ float s_sum[kWarps][GM * AM];
   __shared__ int s_cnt[kWarps][GM + 1];
   __shared__ int s_last;
+  const long long bind_at = blockIdx.y;
+  const auto src = bind.at((int)bind_at);
+  int* out = out0 + bind_at * out_row;
+  int* ticket = ticket0 + bind_at;
+  uint8_t* mask_out = kMask ? mask0 + bind_at * n : nullptr;
   RegAcc<GM, AM> acc;
   acc.zero();
 
@@ -288,6 +325,7 @@ agg_reg_kernel(Src src, long long n, int G, int A, int* ws, int* out,
   __syncthreads();
 
   const int GA = G * A, O = agg_outputs(G, A), words = agg_row_words(G, A);
+  ws += bind_at * gridDim.x * words;
   int* row = ws + (long long)blockIdx.x * words;
   for (int o = threadIdx.x; o < words; o += kAggBlock) {
     if (o >= O) {
@@ -319,11 +357,14 @@ agg_reg_kernel(Src src, long long n, int G, int A, int* ws, int* out,
   if (threadIdx.x == 0) *ticket = 0;
 }
 
-template <class Src, int NV, bool kMask>
+template <class Bind, int NV, bool kMask>
 __global__ void __launch_bounds__(kAggBlock)
-agg_shared_kernel(Src src, long long n, long long chunk, int G, int A,
-                  int reps, int* ws, uint8_t* mask_out) {
+agg_shared_kernel(Bind bind, long long n, long long chunk, int G, int A,
+                  int reps, int* ws, uint8_t* mask0) {
   constexpr int kV = NV > 0 ? NV : 1;
+  const long long bind_at = blockIdx.y;
+  const auto src = bind.at((int)bind_at);
+  uint8_t* mask_out = kMask ? mask0 + bind_at * n : nullptr;
   extern __shared__ float smem[];
   __shared__ int scratch[kAggBlock / kWarp];
   const int GA = G * A;
@@ -377,7 +418,7 @@ agg_shared_kernel(Src src, long long n, long long chunk, int G, int A,
   }
   __syncthreads();
 
-  int* row = ws + (long long)blockIdx.x * agg_row_words(G, A);
+  int* row = ws + (bind_at * gridDim.x + blockIdx.x) * agg_row_words(G, A);
   for (int j = threadIdx.x; j < GA; j += kAggBlock) {
     float s = 0.f;
     for (int r = 0; r < reps; ++r) s += s_sums[(size_t)r * GA + j];
@@ -413,16 +454,20 @@ __device__ __forceinline__ T strided_sum(const T* p, int w, int nb,
 }
 
 // The shared-memory regime's second launch: `out` = the sum of rows 0 ..
-// nb - 1 (rows of `stride` words, O of them outputs).  A block takes 32
+// nb - 1 (rows of `stride` words, O of them outputs), for binding
+// blockIdx.y: its rows start b x nb rows into `ws`, its result out_row
+// words past binding 0's.  A block takes 32
 // outputs, one per lane, so each warp's reads are contiguous; warp w adds
 // the partials of blocks w, w + 32, ... in block order, and the 32 warps'
 // sums are added by a tree over warps (16, 8, 4, 2, 1 apart).  The order
 // is the same in every call.
 __global__ void __launch_bounds__(kWarp * kFinWarps)
 agg_finalize_kernel(const int* ws, int* out, int nb, int stride, int O,
-                    int GA) {
+                    int GA, long long out_row) {
   __shared__ float s_f[kFinWarps][kWarp + 1];
   __shared__ int s_i[kFinWarps][kWarp + 1];
+  ws += (long long)blockIdx.y * nb * stride;
+  out += (long long)blockIdx.y * out_row;
   const int lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp;
   const long long o = (long long)blockIdx.x * kWarp + lane;
   float f = 0.f;
@@ -473,36 +518,56 @@ int resident_blocks(K kernel, std::atomic<int>* known, int* out) {
   return 0;
 }
 
-// Launches the register regime (and its fold) over at most `nb` blocks, no
-// more than are resident on the card at once.
+// Blocks of the scalar register-regime instance resident on the card at
+// once: the grid of its launch, and of a batched launch over the same
+// source, so that both partition the rows the same way.
 template <class Src, int GM, int AM, bool kMask>
-int launch_reg(Src src, long long n, int G, int A, int* ws, int nb,
-               int* out, int* ticket, uint8_t* mask_out, cudaStream_t stream) {
+int reg_resident(int* out) {
   static std::atomic<int> known[kMaxDevices];
-  auto kernel = agg_reg_kernel<Src, GM, AM, kMask>;
+  return resident_blocks(agg_reg_kernel<OneBinding<Src>, GM, AM, kMask>,
+                         known, out);
+}
+
+// Launches the register regime (and its fold) over at most `nb` blocks a
+// binding, no more than the scalar instance has resident on the card at
+// once, and B bindings.
+template <class Bind, int GM, int AM, bool kMask>
+int launch_reg(Bind bind, int B, long long n, int G, int A, int* ws, int nb,
+               int* out, long long out_row, int* ticket, uint8_t* mask_out,
+               cudaStream_t stream) {
+  using Src = bound_source_t<Bind>;
   int resident = 0;
-  const int err = resident_blocks(kernel, known, &resident);
+  const int err = reg_resident<Src, GM, AM, kMask>(&resident);
   if (err != 0) return err;
   const int grid = nb < resident ? nb : resident;
-  kernel<<<grid, kAggBlock, 0, stream>>>(src, n, G, A, ws, out, ticket,
-                                         mask_out);
+  agg_reg_kernel<Bind, GM, AM, kMask>
+      <<<dim3((unsigned)grid, (unsigned)B), kAggBlock, 0, stream>>>(
+          bind, n, G, A, ws, out, out_row, ticket, mask_out);
   return (int)cudaGetLastError();
 }
 
-template <class Src, int GM, int AM>
-int launch_reg(Src src, long long n, int G, int A, int* ws, int nb,
-               int* out, int* ticket, uint8_t* mask_out, cudaStream_t stream) {
-  return mask_out != nullptr
-      ? launch_reg<Src, GM, AM, true>(src, n, G, A, ws, nb, out, ticket,
-                                      mask_out, stream)
-      : launch_reg<Src, GM, AM, false>(src, n, G, A, ws, nb, out, ticket,
-                                       nullptr, stream);
+// The mask-storing instance exists for the scalar launch only.
+template <class Bind, int GM, int AM>
+int launch_reg(Bind bind, int B, long long n, int G, int A, int* ws, int nb,
+               int* out, long long out_row, int* ticket, uint8_t* mask_out,
+               cudaStream_t stream) {
+  if constexpr (is_one_binding<Bind>::value) {
+    if (mask_out != nullptr)
+      return launch_reg<Bind, GM, AM, true>(bind, B, n, G, A, ws, nb, out,
+                                            out_row, ticket, mask_out,
+                                            stream);
+  } else if (mask_out != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_reg<Bind, GM, AM, false>(bind, B, n, G, A, ws, nb, out,
+                                         out_row, ticket, nullptr, stream);
 }
 
-// The shared regime and its second launch.
-template <class Src, int NV>
-int launch_shared(Src src, long long n, int G, int A, int* ws, int nb,
-                  int* out, uint8_t* mask_out, cudaStream_t stream) {
+// The shared regime and its second launch, B bindings.
+template <class Bind, int NV>
+int launch_shared(Bind bind, int B, long long n, int G, int A, int* ws,
+                  int nb, int* out, long long out_row, uint8_t* mask_out,
+                  cudaStream_t stream) {
   const size_t per_rep = (size_t)G * (A + 1) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -518,8 +583,13 @@ int launch_shared(Src src, long long n, int G, int A, int* ws, int nb,
   if (reps < 1) reps = 1;
   const size_t smem = reps * per_rep;
   if (smem + kAggStaticSmem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  auto kernel = mask_out != nullptr ? agg_shared_kernel<Src, NV, true>
-                                    : agg_shared_kernel<Src, NV, false>;
+  void (*kernel)(Bind, long long, long long, int, int, int, int*, uint8_t*) =
+      agg_shared_kernel<Bind, NV, false>;
+  if constexpr (is_one_binding<Bind>::value) {
+    if (mask_out != nullptr) kernel = agg_shared_kernel<Bind, NV, true>;
+  } else if (mask_out != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (smem > budget) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -528,46 +598,61 @@ int launch_shared(Src src, long long n, int G, int A, int* ws, int nb,
   }
   long long chunk = (n + nb - 1) / nb;
   if (chunk < 1) chunk = 1;
-  kernel<<<nb, kAggBlock, smem, stream>>>(src, n, chunk, G, A, (int)reps, ws,
-                                          mask_out);
+  kernel<<<dim3((unsigned)nb, (unsigned)B), kAggBlock, smem, stream>>>(
+      bind, n, chunk, G, A, (int)reps, ws, mask_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int O = agg_outputs(G, A);
-  agg_finalize_kernel<<<(O + kWarp - 1) / kWarp, kWarp * kFinWarps, 0,
-                        stream>>>(ws, out, nb, agg_row_words(G, A), O, G * A);
+  agg_finalize_kernel<<<dim3((unsigned)((O + kWarp - 1) / kWarp),
+                             (unsigned)B),
+                        kWarp * kFinWarps, 0, stream>>>(
+      ws, out, nb, agg_row_words(G, A), O, G * A, out_row);
   return (int)cudaGetLastError();
 }
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// `nb` must be agg_blocks(n, G, A); `ws` holds nb x agg_row_words(G, A)
-// words and `out` one such row (the layout above), and `ticket` is the
-// stream's ticket, at 0.
-// `mask_out` (nullable) receives the predicate as one byte per row, for
-// the compaction of compact.cuh to rank.  NV bounds A at compile time; GC
-// is G where the source fixes it (a generated source), 0 where G comes at
-// run time (filter_agg.cu), so that only the regimes a source can take
-// are instantiated.
+// B bindings through `bind` (common.cuh).  `nb` must be agg_blocks(n, G,
+// A); `ws` holds B x nb x agg_row_words(G, A) words and `out` B rows of
+// that layout, `out_row` words apart (the layout above), and `ticket` B
+// tickets, at 0.  `mask_out` (nullable; the scalar launch only) receives
+// the predicate as one byte per row, for the compaction of compact.cuh to
+// rank.  NV bounds A at compile time; GC is G where the source fixes it (a
+// generated source), 0 where G comes at run time (filter_agg.cu), so that
+// only the regimes a source can take are instantiated.
+template <class Bind, int NV, int GC = 0>
+int launch_agg_batch(Bind bind, int B, long long n, int G, int A, int nb,
+                     int* ws, int* out, long long out_row, int* ticket,
+                     uint8_t* mask_out, cudaStream_t stream) {
+  constexpr int kV = NV > 0 ? NV : 1;
+  if (A > NV || (GC > 0 && G != GC) || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (GC > 0) {
+    if constexpr (register_regime(GC, NV))
+      return launch_reg<Bind, GC, kV>(bind, B, n, G, A, ws, nb, out, out_row,
+                                      ticket, mask_out, stream);
+    else
+      return launch_shared<Bind, NV>(bind, B, n, G, A, ws, nb, out, out_row,
+                                     mask_out, stream);
+  } else if (register_regime(G, A)) {
+    if (G == 1)
+      return launch_reg<Bind, 1, cmin(kV, kRegMaxValsOneGroup)>(
+          bind, B, n, G, A, ws, nb, out, out_row, ticket, mask_out, stream);
+    return launch_reg<Bind, kRegMaxGroups, cmin(kV, kRegMaxVals)>(
+        bind, B, n, G, A, ws, nb, out, out_row, ticket, mask_out, stream);
+  }
+  return launch_shared<Bind, NV>(bind, B, n, G, A, ws, nb, out, out_row,
+                                 mask_out, stream);
+}
+
+// The scalar launch: one binding.  `ws` holds nb x agg_row_words(G, A)
+// words and `out` one such row, and `ticket` is the stream's ticket, at 0.
 template <class Src, int NV, int GC = 0>
 int launch_agg(Src src, long long n, int G, int A, int nb, int* ws, int* out,
                int* ticket, uint8_t* mask_out, cudaStream_t stream) {
-  constexpr int kV = NV > 0 ? NV : 1;
-  if (A > NV || (GC > 0 && G != GC)) return (int)cudaErrorInvalidValue;
-  if constexpr (GC > 0) {
-    if constexpr (register_regime(GC, NV))
-      return launch_reg<Src, GC, kV>(src, n, G, A, ws, nb, out, ticket,
-                                     mask_out, stream);
-    else
-      return launch_shared<Src, NV>(src, n, G, A, ws, nb, out, mask_out,
-                                    stream);
-  } else if (register_regime(G, A)) {
-    if (G == 1)
-      return launch_reg<Src, 1, cmin(kV, kRegMaxValsOneGroup)>(
-          src, n, G, A, ws, nb, out, ticket, mask_out, stream);
-    return launch_reg<Src, kRegMaxGroups, cmin(kV, kRegMaxVals)>(
-        src, n, G, A, ws, nb, out, ticket, mask_out, stream);
-  }
-  return launch_shared<Src, NV>(src, n, G, A, ws, nb, out, mask_out, stream);
+  return launch_agg_batch<OneBinding<Src>, NV, GC>(
+      OneBinding<Src>{src}, 1, n, G, A, nb, ws, out, 0, ticket, mask_out,
+      stream);
 }
 
 }  // namespace repro

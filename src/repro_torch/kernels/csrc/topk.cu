@@ -312,8 +312,8 @@ int repro_masked_topk(const float* vals, const uint8_t* mask, long long n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int e = repro::launch_compact(
-      TieSource{rows, st, cand_key, cand_row}, n_virt,
-      repro::compact_scratch(tail, n_virt), tie_row, k, nullptr, stream);
+      TieSource{rows, st, cand_key, cand_row}, n_virt, tail, tie_row, k,
+      nullptr, stream);
   if (e != 0) return e;
   topk_sort_kernel<<<1, kMaxK, 0, stream>>>(st, cand_key, cand_row, tie_row,
                                             k, out_v, out_i);

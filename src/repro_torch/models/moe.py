@@ -1,9 +1,13 @@
 """Mixture-of-Experts FFN, capacity-bounded, with local routing.
 
-The port of `repro/models/moe.py` (`_moe_local` at one expert a step,
-the reference's default).  The reference computes it in plain JAX (no
-Pallas kernel), so it is plain torch here.  Its choices are kept where
-they decide which token an expert takes:
+The port of `repro/models/moe.py` (`_moe_local`).  The reference
+computes it in plain JAX (no Pallas kernel), so it is plain torch here.
+Its lever `REPRO_MOE_GROUP` is read as there: G experts a step, their
+tokens gathered once and their contributions added in one scatter (E / G
+traversals of the (N, D) accumulator instead of E), G clamped to [1, E]
+and rounded down to a divisor of E; G = 1, the default, is one expert a
+step.  Its choices are kept where they decide which token an expert
+takes:
 
 - the top-k breaks ties toward the lower expert id (`jax.lax.top_k`);
 - the assignments are ordered by a *stable* sort on the expert id
@@ -28,6 +32,7 @@ move).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +72,16 @@ def top_k(x, k: int):
     return vals[..., :k], ids[..., :k]
 
 
+def moe_group(e: int) -> int:
+    """Experts a step: `REPRO_MOE_GROUP` (default 1), clamped to [1, e]
+    and rounded down to a divisor of e, as the reference reads it."""
+    group = int(os.environ.get("REPRO_MOE_GROUP", "1"))
+    group = max(1, min(group, e))
+    while e % group:
+        group -= 1
+    return group
+
+
 def _moe_local(x, p, *, topk: int, capacity: int):
     """x: (N, D) tokens; expert weights (E, D, F), or a slice of F.
     Returns the float32 sum (partial over an F slice)."""
@@ -95,13 +110,21 @@ def _moe_local(x, p, *, topk: int, capacity: int):
     win_tok, win_ids, win_w = s_tok[rows], s_ids[rows], s_w[rows]
 
     acc = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    for j in range(e):
-        idx, w = win_tok[j], win_w[j]
-        valid = win_ids[j] == j
-        xe = x[idx] * valid[:, None].to(x.dtype)
-        h = F.silu(xe @ p["w_gate"][j]) * (xe @ p["w_up"][j])
-        y = (h @ p["w_down"][j]).float() * (w * valid)[:, None]
-        acc.index_add_(0, idx, y)
+    group = moe_group(e)
+    for j0 in range(0, e, group):
+        # one gather and one scatter for the group's experts, in expert
+        # order (group 1: one expert a step)
+        idx = win_tok[j0:j0 + group].reshape(-1)
+        xg = x[idx]
+        ys = []
+        for k, j in enumerate(range(j0, j0 + group)):
+            valid = win_ids[j] == j
+            xe = xg[k * capacity:(k + 1) * capacity] \
+                * valid[:, None].to(x.dtype)
+            h = F.silu(xe @ p["w_gate"][j]) * (xe @ p["w_up"][j])
+            ys.append((h @ p["w_down"][j]).float()
+                      * (win_w[j] * valid)[:, None])
+        acc.index_add_(0, idx, ys[0] if group == 1 else torch.cat(ys))
 
     if "shared" in p:
         sp = p["shared"]

@@ -12,9 +12,10 @@ second one.
 Execution is *coalesced*, mirroring `batcher.py`'s tick discipline:
 requests arriving within one window that share a plan key are grouped
 into a single batch, executed by one `CompiledQuery.run_many` (via
-`PlanCache.run_many`: the staged walks enqueued back to back, their
-counts read in one copy), and their results scattered back to the
-per-request futures.  A window flushes when it
+`PlanCache.run_many`: from `compile.BATCH_MIN` requests one staged
+walk under vmap for the whole group, each engine kernel one launch a
+call site, the counts read in one copy), and their results scattered
+back to the per-request futures.  A window flushes when it
 fills (`max_batch`), when its deadline expires (the flusher thread's
 tick), or when `flush()`/`drain()` forces it — `drain` flushes partial
 windows, so no request can hang because traffic stopped mid-tick.  The

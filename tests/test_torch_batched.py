@@ -1,17 +1,24 @@
 """Bind-many in the port, on the CPU at sf 0.01, seed 0:
-`CompiledQuery.run_many` (N staged walks, their point counts read in one
-copy), `PlanCache.execute_many` (plan-key partitioning) and the query
-server's coalescing window, against N `run`s of the same query (bit for
-bit) and against the reference's answers and accounting for the same
-requests (`test_queries.assert_same`: exact on ints, rtol 2e-3 on
-floats).  Unlike the reference, the port pads no batch: N bindings are N
-staged walks (`CompiledQuery.pads_batches` is False)."""
+`CompiledQuery.run_many` (one staged walk under `torch.func.vmap` for N
+bindings, its point counts read in one copy, from `BATCH_MIN` bindings
+on, in passes of at most `BATCH_MAX`), `PlanCache.execute_many`
+(plan-key partitioning) and the query server's coalescing window,
+against N `run`s of the same query and against the reference's answers
+and accounting for the same requests (`test_queries.assert_same`: exact
+on ints, rtol 2e-3 / atol 1e-2 on floats: the batched walk sums a (N, n)
+tensor where `run` sums an (n,) one, in another order).  As in the
+reference, a batched pass is one execution; unlike it, the port pads no
+batch (`CompiledQuery.pads_batches` is False).  vmap's per-example
+fallback is off in this module, so an operator without a batching rule
+fails instead of looping over the bindings."""
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import CompiledQuery, CompiledQueryBatch, preset
 from repro_torch.core import compile as compile_mod
 from repro_torch.core.ir import Agg, Compact, Select
+from repro_torch.kernels import ops as kops
 from repro_torch.relational.queries import PARAM_QUERIES, QUERIES
 from repro_torch.relational.schema import days
 from test_torch_plan_cache import (assert_matches, one_thread,  # noqa: F401
@@ -24,11 +31,26 @@ def q6_bindings(n):
     return [dict(defaults, qty_max=10.0 + 0.35 * i) for i in range(n)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def no_vmap_fallback():
+    """An op with no batching rule raises instead of looping."""
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    yield
+    torch._C._functorch._set_vmap_fallback_enabled(True)
+
+
 def assert_identical(got: dict, want: dict):
-    """Bit for bit: run_many and run execute the same staged walk."""
+    """A slot of run_many against `run` of its binding: the same columns
+    and rows, ints exact, floats to `assert_same` (the batched walk adds
+    in another order)."""
     assert set(got) == set(want)
     for k in got:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if got[k].dtype.kind == "f" or want[k].dtype.kind == "f":
+            np.testing.assert_allclose(got[k].astype(np.float64),
+                                       want[k].astype(np.float64),
+                                       rtol=2e-3, atol=1e-2, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("pname", ["opt", "opt-pallas"])
@@ -44,9 +66,15 @@ def test_run_many_equals_run_and_the_reference(sides, qname, pname):
     cq, rt = cache.get(port.plan(qname), preset(pname), port.defaults(qname))
     alt = dict(rt, **{k: v for k, v in port.alt[qname].items() if k in rt})
     bindings = [rt, alt, rt]
-    before = compile_mod.STAGINGS
+    before, execs = compile_mod.STAGINGS, cq.n_executions
+    calls = dict(kops.calls)
     got = cq.run_many(bindings)
     assert compile_mod.STAGINGS == before, "run_many must not re-stage"
+    assert cq.n_executions - execs == 1, "one batched pass"
+    # each engine entry point once a call site, whatever N is
+    cq.run(rt)
+    once = {k: kops.calls[k] - v for k, v in calls.items()}
+    assert all(c % 2 == 0 for c in once.values()), once
     for g, b in zip(got, bindings):
         assert_identical(g, cq.run(b))
     assert_matches(got[0], want[0])
@@ -54,8 +82,9 @@ def test_run_many_equals_run_and_the_reference(sides, qname, pname):
 
 
 def test_run_many_64_bindings(pdb, sides):
-    """64 bindings of q6: 64 staged walks, no staging, each equal to its
-    `run` and to the reference's Volcano under the same binding."""
+    """64 bindings of q6: one batched pass (the reference's one vmapped
+    dispatch), no staging, each equal to its `run` and to the reference's
+    Volcano under the same binding."""
     ref, _port = sides
     build, defaults = PARAM_QUERIES["q6"]
     cq = CompiledQuery(build(), pdb, preset("opt-pallas"), params=defaults,
@@ -63,7 +92,7 @@ def test_run_many_64_bindings(pdb, sides):
     bindings = q6_bindings(64)
     before, execs = compile_mod.STAGINGS, cq.n_executions
     batched = cq.run_many(bindings)
-    assert cq.n_executions - execs == 64
+    assert cq.n_executions - execs == 1
     assert compile_mod.STAGINGS == before
     for b, got in zip(bindings, batched):
         assert_identical(got, cq.run(b))
@@ -72,9 +101,50 @@ def test_run_many_64_bindings(pdb, sides):
                        ref.oracle.execute(ref.plan("q6"), b))
 
 
+@pytest.mark.parametrize("n", [1, 2])
+def test_run_many_below_batch_min_runs_scalar_walks(pdb, n):
+    """Fewer than `BATCH_MIN` bindings: one scalar walk a binding (they
+    cost less than a batched pass there), each equal to its `run`; the
+    batched pass of the same bindings (`run_batched`) gives the same
+    answers."""
+    assert n < compile_mod.BATCH_MIN
+    build, defaults = PARAM_QUERIES["q6"]
+    cq = CompiledQuery(build(), pdb, preset("opt-pallas"), params=defaults,
+                       device="cpu")
+    bindings = q6_bindings(n)
+    calls, execs = dict(kops.calls), cq.n_executions
+    got = cq.run_many(bindings)
+    assert cq.n_executions - execs == n
+    assert kops.calls["selective_agg"] - calls["selective_agg"] == n
+    batched = cq.run_batched(bindings)
+    assert cq.n_executions - execs == n + 1
+    for b, g, h in zip(bindings, got, batched):
+        assert_identical(g, cq.run(b))
+        assert_identical(h, g)
+
+
+@pytest.mark.parametrize("n,passes", [(8, 2), (9, 3)])
+def test_run_many_splits_into_passes_of_batch_max(pdb, monkeypatch, n,
+                                                  passes):
+    """More than `BATCH_MAX` bindings run as passes of at most BATCH_MAX
+    (a pass's device memory grows with its bindings), of equal sizes
+    within one (9 as 3 x 3, so that no pass falls below BATCH_MIN).
+    Results stay in order."""
+    monkeypatch.setattr(compile_mod, "BATCH_MAX", 4)
+    build, defaults = PARAM_QUERIES["q6"]
+    cq = CompiledQuery(build(), pdb, preset("opt"), params=defaults,
+                       device="cpu")
+    bindings = q6_bindings(n)
+    got = cq.run_many(bindings)
+    assert cq.n_executions == passes
+    for b, g in zip(bindings, got):
+        assert_identical(g, cq.run(b))
+
+
 def test_run_many_reads_every_count_in_one_copy(pdb, monkeypatch):
     """q3's two compaction points over five bindings: one device-to-host
-    read of all ten counts, then the results."""
+    read of all ten counts (the batched pass's), then the results; `run`
+    reads its own two in one more."""
     build, defaults = PARAM_QUERIES["q3"]
     plan = build()
     from repro_torch.core.passes.param_binding import bind_plan
@@ -84,9 +154,12 @@ def test_run_many_reads_every_count_in_one_copy(pdb, monkeypatch):
     cq = CompiledQuery(plan, pdb, preset("opt"), params=rt, device="cpu")
     assert cq.compaction_points == 2
     reads = []
-    real = cq._counts_to_host
+    real, real_many = cq._counts_to_host, cq._batch_counts_to_host
     monkeypatch.setattr(cq, "_counts_to_host",
                         lambda runs: reads.append(len(runs)) or real(runs))
+    monkeypatch.setattr(
+        cq, "_batch_counts_to_host",
+        lambda counts, n: reads.append(n) or real_many(counts, n))
     bindings = [{"cutoff": days("1995-03-15") + 30 * i} for i in range(5)]
     got = cq.run_many(bindings)
     assert reads == [5]
@@ -123,6 +196,64 @@ def test_run_many_reruns_only_the_overflowing_slots(pdb, sides):
     for got, b in zip(results, bindings):
         assert_identical(got, cq.run(b))
         assert_matches(got, ref.oracle.execute(ref.plan("q6"), b))
+
+
+def _plant(plan, capacity: int) -> None:
+    """Put the first Select of `plan` (in field order) under a hand-
+    planted Compact of `capacity` rows."""
+    import dataclasses
+
+    from repro_torch.core import ir
+
+    def rec(p):
+        for f in dataclasses.fields(p):
+            c = getattr(p, f.name)
+            if isinstance(c, ir.Select):
+                setattr(p, f.name, Compact(c, capacity))
+                return True
+            if isinstance(c, ir.Plan) and rec(c):
+                return True
+        return False
+
+    assert rec(plan)
+
+
+@pytest.mark.parametrize("pname", ["opt", "opt-pallas"])
+@pytest.mark.parametrize("qname", ["q1", "q3", "q6", "q12", "q14"])
+def test_run_many_overflow_reruns_one_slot(sides, pdb, qname, pname):
+    """A point planted at the first Select, its capacity the smaller of
+    the default and the alternative bindings' true counts (measured by a
+    measure-only point first): in a pass of (small, large, small) only
+    the large slot overflows and re-runs through the twin, and every
+    slot equals its `run` and the reference's Volcano.  (q19's plan has
+    no Select whose rows depend on its parameters.)"""
+    from repro_torch.core.passes.param_binding import bind_plan
+
+    ref, port = sides
+    build, d = PARAM_QUERIES[qname]
+    full = [port.defaults(qname), port.alt_bindings(qname)]
+    runtime = [{k: v for k, v in b.items()
+                if not isinstance(v, str) and k != "topn"} for b in full]
+    structural = {k: v for k, v in d.items() if k not in runtime[0]}
+
+    def compiled(capacity, settings):
+        plan = bind_plan(build(), structural)
+        _plant(plan, capacity)
+        return CompiledQuery(plan, pdb, settings, params=runtime[0],
+                             device="cpu")
+
+    probe = compiled(0, preset("opt"))
+    counts = probe.execute_many(probe.bind_many(runtime))[2]["h0"].tolist()
+    assert counts[0] != counts[1], counts
+    small = int(np.argmin(counts))
+    cq = compiled(min(counts), preset(pname))
+    order = [small, 1 - small, small]
+    results = cq.run_many([runtime[i] for i in order])
+    assert cq.n_overflows == 1 and cq.n_executions == 1
+    assert cq._fallback is not None and cq._fallback.n_executions == 1
+    for got, i in zip(results, order):
+        assert_identical(got, cq.run(runtime[i]))
+        assert_matches(got, ref.oracle.execute(ref.plan(qname), full[i]))
 
 
 def test_execute_many_partitions_by_plan_key(sides):
@@ -170,8 +301,8 @@ def test_compiled_query_batch_equals_single_runs(pdb, sides):
 # ---------------------------------------------------------------------------
 
 def test_server_coalesces_same_key_requests_into_one_run_many(sides):
-    """16 q6 requests inside one window: one group, one `run_many` (16
-    staged walks), results scattered back per request."""
+    """16 q6 requests inside one window: one group, one `run_many` (one
+    batched pass), results scattered back per request."""
     ref, port = sides
     bindings = q6_bindings(16)
     with port.server(port.db, preset("opt-pallas"), window_s=3600.0,
@@ -184,7 +315,7 @@ def test_server_coalesces_same_key_requests_into_one_run_many(sides):
         assert srv.cache.stats.compiles == 1
         cq, _ = srv.cache.get(port.plan("q6"), preset("opt-pallas"),
                               bindings[0])
-        assert cq.n_executions == 16
+        assert cq.n_executions == 1
     for b, got in zip(bindings, results):
         assert_matches(got, ref.oracle.execute(ref.plan("q6"), b))
 

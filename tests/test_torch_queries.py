@@ -319,7 +319,9 @@ def test_chip_smoke_rehearsal_reports_every_kernel():
     rows = json.loads(lines[0])["kernels"]
     assert [k["name"] for k in rows] == [
         "compact", "compact_pred", "filter_agg", "selective_filter_agg",
-        "gather_join", "masked_topk", "selective_filter_agg_capacity"]
+        "gather_join", "masked_topk", "selective_filter_agg_capacity",
+        "compact_batched", "compact_pred_batched", "filter_agg_batched",
+        "selective_filter_agg_batched"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "kernels_per_call"}
