@@ -16,7 +16,9 @@ result line):
      opt-pallas (phase 4c);
   3. build every kernel library, every generated instance phase 5 reaches
      among them and the batched instances of the bind-many pass (one nvcc
-     per source, all at once);
+     per source, all at once), and log `-Xptxas -v`'s lines of the two
+     redesigned batched kernels (`compact_batched_kernel`,
+     `agg_staged_kernel`);
   4. hold each kernel against its plain torch version on the card, at the
      recorded SF 1 shapes and at edge cases (1 and 37 rows, no valid row,
      overflow past the capacity, translate), and compaction under many
@@ -48,8 +50,12 @@ result line):
      plain version, the one PyTorch call of the same function where
      there is one, device profile, host clock) beside a bound
      that counts a shared operand once and a batched one and every output
-     B times; the batched compaction over 2^22 + 37 rows, B = 8, 20 calls
-     against one plain answer;
+     B times, every recorded call of the selective form (q1 and q6) with
+     the staged instance's cluster size, clusters resident at once and
+     ring, its bound the larger of those bytes' time and its operations'
+     at the float32 rate, the register step's issue floor beside it; the
+     batched compaction over 2^22 + 37 rows, B = 8, 20 calls against one
+     plain answer;
   4b. the kernel library's surface (`repro_torch.kernels`), whose
      gather_join, masked_topk and capacity form of selective_filter_agg
      the engine never calls: reset their launch counters, drive each entry
@@ -92,7 +98,8 @@ result line):
      and read after: 64 bindings of each of the six plans as one
      `run_many`, one execution each, launching exactly
      `LAUNCHES_SF1_PARAM[q]` (not 64 times it), every batched instance
-     launched, the pass's peak device memory; every slot against `run`
+     launched, q1's and q6's selective launch on the staged path (the
+     wrapper's `filter_agg.staging`), the pass's peak device memory; every slot against `run`
      and the CPU; at 1, 2, 3, 4, 16 and 64 bindings the executions
      `run_many` takes (one scalar walk a binding below
      `compile.BATCH_MIN`, else passes), then `execute_many`, the entry's
@@ -231,6 +238,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores (idem)
+# float32 instructions a second: an FMA is two of the operations above
+FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
 # the queries whose kernel operands phase 4 holds against the plain
 # versions; phase 5 runs every query of the port
 SLICE = ["q1", "q3", "q6", "q12"]
@@ -969,6 +979,10 @@ BATCHED_MEMSETS = {"compact_batched": 1, "compact_pred_batched": 1,
 BATCH_SIZES = (1, 7, 64)         # phase 4c's bindings a call
 BATCH_TIMED = 64                 # and the timed one
 RUN_MANY_SIZES = (1, 2, 3, 4, 16, 64)  # phase 7 (b)'s bindings a call
+# the plans whose 64-binding pass must take the staged selective kernel
+STAGED_QUERIES = ("q1", "q6")
+# the redesigned batched kernels, whose ptxas lines phase 3 logs
+REDESIGNED = ("compact_batched_kernel", "agg_staged_kernel")
 
 
 def batched_records(db):
@@ -1106,6 +1120,70 @@ def batch_of(a) -> int:
     return 0
 
 
+# the batched instances whose every recorded call is timed at B = 64
+# (the selective form serves q1, bound by its adds, and q6, by bytes)
+TIME_EVERY_CALL = ("selective_filter_agg_batched",)
+
+
+def expr_ops(e) -> int:
+    """Operations one row's evaluation of expression `e` does: one for
+    each arithmetic, comparison, logical, selection and year node, one
+    comparison a code of a code set (and the ors between them), three
+    for a code range."""
+    import dataclasses
+
+    from repro_torch.core import expr as E
+
+    if isinstance(e, E.CodeIn):
+        return max(2 * len(e.codes) - 1, 0)
+    if isinstance(e, E.CodeRange):
+        return 3
+    if isinstance(e, (E.Col, E.Const, E.Param)):
+        return 0
+    return 1 + sum(expr_ops(getattr(e, f.name))
+                   for f in dataclasses.fields(e)
+                   if dataclasses.is_dataclass(getattr(e, f.name)))
+
+
+def selective_work(a, out) -> dict:
+    """The operations a batched selective call does on these inputs
+    (every row and binding: its predicate and group index; every kept
+    one: its values, A sums and a count) and the register step's
+    instructions (G x (A + 1) predicated adds a row and binding,
+    whatever the data), each over the card's float32 rate."""
+    cols, _fp, _ip, _kinds, pred, vfns, gfn, G = a
+    B = batch_of(a) or 1
+    n = next(iter(cols.values())).shape[-1]
+    per_row = expr_ops(pred.expr) + (
+        2 * len(gfn.radix) + 2 if gfn is not None else 0)
+    per_kept = sum(expr_ops(f.expr) for f in vfns) + len(vfns) + 1
+    kept = int(out[2].sum())
+    ops = B * n * per_row + kept * per_kept
+    issue = B * n * G * (len(vfns) + 1)
+    return {"ops": ops, "ops_ms": ops / FP32_OPS_PER_S * 1e3,
+            "issue_floor_ms": issue / FP32_ISSUE_PER_S * 1e3}
+
+
+def work_bound_ms(c: dict) -> float:
+    """The larger of the bytes' and the operations' times."""
+    return max(c["bytes"] / HBM_BYTES_PER_S * 1e3, c.get("ops_ms", 0.0))
+
+
+def ptxas_of(log_text: str, kernels) -> dict:
+    """`-Xptxas -v`'s lines (registers, shared memory, spills) of each
+    compiled entry whose mangled name holds one of `kernels`."""
+    out, key = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            key = ln.split("'")[1] if any(k in ln for k in kernels) \
+                and "'" in ln else None
+            if key is not None:
+                out[key] = []
+        elif key is not None and ("registers" in ln or "spill" in ln):
+            out[key].append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
 def batched_checks(brecords, dev, timed: bool) -> dict:
     """Each batched instance at the recorded SF 1 operands, widened to B =
     1, 7 and 64 bindings: against its batched plain version (ints exact,
@@ -1113,7 +1191,9 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
     output on binding b, one kernel a call (with its one memset for the
     compactions); at B = 64 the largest call of each is timed (kernel,
     plain version, `batched_library_call`, device profile, host clock)
-    beside its bound.  Returns one entry per batched instance."""
+    beside its bound, and every call of TIME_EVERY_CALL (with the staged
+    instance's clusters and ring, in `per_query`).  Returns one entry per
+    batched instance."""
     import torch
 
     out: dict = {}
@@ -1140,25 +1220,39 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
                           "scalar kernel's output bit for bit")
             n = next(t for t in (wa[0].values() if isinstance(wa[0], dict)
                                  else [wa[0]])).shape[-1]
-            if B != BATCH_TIMED or n <= e["n"]:
+            every = name in TIME_EVERY_CALL
+            if B != BATCH_TIMED or (n <= e["n"] and not every):
                 continue
-            e.update(n=n, B=B, query=q, bytes=_batched_bytes(name, wa, got))
-            if not timed:
-                continue
-            fn = (lambda wa=wa, f=getattr(m, public): f(*wa, **k))
-            lib = batched_library_call(name, wa)
-            e.update(ms=time_ms(fn),
-                     plain_ms=time_ms(lambda wa=wa, f=getattr(m, plain):
-                                      f(*wa, **k), reps=3, inner=1),
-                     library_ms=time_ms(lib, reps=3, inner=1)
-                     if lib is not None else None,
-                     host_ms=host_ms(fn),
-                     **one_launch_a_call(name, fn, BATCHED_MEMSETS[name]))
-            del lib
-            log(f"{name} {q} at B={B} x {n} rows: {e['ms']} ms "
-                f"({e['ms'] / B} a binding), device {e['device_ms']} ms, "
-                f"host {e['host_ms']} ms, bound "
-                f"{e['bytes'] / HBM_BYTES_PER_S * 1e3} ms")
+            c = {"n": n, "B": B, "query": q,
+                 "bytes": _batched_bytes(name, wa, got)}
+            if name == "selective_filter_agg_batched":
+                c.update(selective_work(wa, got))
+            if timed:
+                fn = (lambda wa=wa, f=getattr(m, public): f(*wa, **k))
+                lib = batched_library_call(name, wa)
+                c.update(ms=time_ms(fn),
+                         plain_ms=time_ms(lambda wa=wa, f=getattr(m, plain):
+                                          f(*wa, **k), reps=3, inner=1),
+                         library_ms=time_ms(lib, reps=3, inner=1)
+                         if lib is not None else None,
+                         host_ms=host_ms(fn),
+                         **one_launch_a_call(name, fn, BATCHED_MEMSETS[name]))
+                del lib
+                if name == "selective_filter_agg_batched":
+                    c["staging"] = m.selective_batched_info(*wa)
+                    log(f"{name} {q}: staged instance "
+                        + json.dumps(c["staging"]))
+                log(f"{name} {q} at B={B} x {n} rows: {c['ms']} ms "
+                    f"({c['ms'] / B} a binding), device {c['device_ms']} "
+                    f"ms, host {c['host_ms']} ms, bound "
+                    f"{work_bound_ms(c)} ms"
+                    + (f" (issue floor {c['issue_floor_ms']} ms)"
+                       if "issue_floor_ms" in c else ""))
+            if every:
+                e.setdefault("per_query", {})[q] = {
+                    k2: v for k2, v in c.items() if k2 != "device_kernels"}
+            if n > e["n"]:
+                e.update(c)
     missing = sorted(set(BATCHED) - set(out))
     check(not missing, f"no recorded call of {missing}")
     log(f"batched instances at B = {', '.join(map(str, BATCH_SIZES))}: "
@@ -1791,14 +1885,22 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
         torch.cuda.reset_peak_memory_stats()
     for d, k in bcounters.values():
         d[k] = 0
+    staging = kmod("filter_agg").staging
+    staged_passes = {}
     for q in shapes:
         cq, _rt = cache.get(plan[q](), S, binds[q]["default"])
         rts = [{k: b[k] for k in cq.param_spec}
                for b in (binds[q]["default"], binds[q]["alt"])]
         before, bbefore = snapshot(), {n: d[k] for n, (d, k)
                                        in bcounters.items()}
+        st0 = dict(staging)
         e0, o0 = cq.n_executions, cq.n_overflows
         passes[q] = cq.run_many([rts[i % 2] for i in range(big)])
+        staged_passes[q] = {k: staging[k] - st0[k] for k in staging}
+        if cuda and q in STAGED_QUERIES:
+            check(staged_passes[q] == {"staged": 1, "unstaged": 0},
+                  f"run_many {q} x{big}: the selective kernel's launches "
+                  f"by path {staged_passes[q]}, not one staged")
         got = launched(before)
         for name, (d, k) in bcounters.items():
             if d[k] > bbefore[name]:
@@ -1815,6 +1917,9 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
         entries[q] = (cq, rts)
     batched_launched = {n: d[k] for n, (d, k) in bcounters.items()}
     log(f"batched pass launches: {json.dumps(batched_launched)}")
+    log("batched pass, selective launches by path (filter_agg.staging): "
+        + json.dumps(staged_passes))
+    report["staged_passes"] = staged_passes
     if cuda:
         report["batched_pass_peak_bytes"] = torch.cuda.max_memory_allocated()
         log(f"batched pass ({big} bindings of each plan): peak device "
@@ -3310,9 +3415,12 @@ def main() -> int:
                     else kf.selective_batch_source(views, kinds, pred,
                                                    *rest))
         for p in build.build_all(sources):
-            ptx = [ln for ln in p.with_suffix(".log").read_text().splitlines()
+            text = p.with_suffix(".log").read_text()
+            ptx = [ln for ln in text.splitlines()
                    if "registers" in ln or "spill" in ln]
             log(f"built {p.name}: " + " | ".join(s.strip() for s in ptx))
+            for kernel, lines in ptxas_of(text, REDESIGNED).items():
+                log(f"ptxas {p.name} {kernel}: " + " | ".join(lines))
         log(f"build: {len(sources)} libraries, "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3445,10 +3553,14 @@ def main() -> int:
             "kernels_per_call": c.get("kernels_per_call"),
             "memsets_per_call": c.get("memsets_per_call"),
             "host_ms": c.get("host_ms"), "plain_ms": c.get("plain_ms"),
-            "bound_ms": c["bytes"] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": c.get("library_ms"),
+            "bound_ms": work_bound_ms(c),
+            "bound_by": "operations" if c.get("ops_ms", 0.0) >
+            c["bytes"] / HBM_BYTES_PER_S * 1e3 else "bytes",
+            "library_ms": c.get("library_ms"),
             "rows": c["n"],
             "bindings": c["B"], "bytes": c["bytes"],
+            "ops": c.get("ops"), "issue_floor_ms": c.get("issue_floor_ms"),
+            "per_query": c.get("per_query"),
             "device_events_lost": c.get("device_events_lost"),
             "path": f"engine, batched pass ({c['query']}'s call)"})
     log(json.dumps({"kernels": rows}))

@@ -28,7 +28,9 @@ pass: one launch for B bindings, the binding in blockIdx.y) wrap the
 functor in `struct Batch`, whose `at(b)` gives binding b's functor: each
 column pointer moved by its binding stride (0 for a column every binding
 shares) and each parameter read from a device vector at the binding's
-index.  A batched instance is a library of its own.
+index.  A batched instance is a library of its own.  The batched
+aggregation adds `struct Stage` (`stage_source`), which reads the
+columns every binding shares from a stage of shared memory.
 
 A column may be a strided view (under the row layout, a column of a
 record matrix): its element stride is baked into the load as a constant,
@@ -124,12 +126,16 @@ class Emitter:
         self.used.add(k)
         return f"x{k}", self.col_types[name]
 
-    def loads(self) -> list[str]:
+    def loads(self, staged=None) -> list[str]:
         """Statements loading every column emitted since the last call,
         each once, ahead of the expression: it then reads registers only,
         so no `&&`, `||` or `?:` puts a load behind a branch, and a kernel
-        that evaluates several rows has all their loads in flight."""
-        out = [f"    const {self.col_types[c]} x{k} = c{k}[{self._row(c)}];"
+        that evaluates several rows has all their loads in flight.  A
+        column in `staged` (indices; a `Stage` method) is read from the
+        quad's registers, `q<k>[r]`, the others from device memory."""
+        out = [f"    const {self.col_types[c]} x{k} = "
+               + (f"q{k}[r];" if staged is not None and k in staged
+                  else f"c{k}[{self._row(c)}];")
                for k, c in enumerate(self.cols) if k in self.used]
         self.used.clear()
         return out
@@ -353,26 +359,35 @@ _BATCH_ARGS = ("const void* const* cols, const long long* cstrides, "
                "long long ips, int B")
 
 
+def _bodies(em: Emitter, pred, values, radix, n_groups: int,
+            staged=None) -> tuple[list[str], list[str], list[str]]:
+    """The bodies of the row methods `pred`, `group` and `values`, each
+    loading the columns it reads first (`Emitter.loads`, `staged` as
+    there)."""
+    em.used.clear()
+    p, _ = em.emit(pred)
+    pred_body = [*em.loads(staged), f"    return {p};"]
+    vals = [f"    v[{k}] = (float){em.emit(e)[0]};"
+            for k, e in enumerate(values)]
+    vals = [*em.loads(staged), *vals]
+    if radix:
+        terms = " + ".join(f"(int){em.col(g)[0]} * {_int_literal(st)}"
+                           for g, _d, st in radix)
+        group = [*em.loads(staged), f"    const int g = {terms};",
+                 f"    return g < 0 ? 0 : (g > {n_groups - 1} ? "
+                 f"{n_groups - 1} : g);"]
+    else:
+        group = ["    return 0;"]
+    return pred_body, group, vals
+
+
 def functor_source(em: Emitter, pred, values: list = (), radix=(),
                    n_groups: int = 1) -> str:
     """`struct Src`: the row functor the kernel bodies are instantiated
     around — `pred(i)`, `group(i)` (the clipped mixed-radix index over
     `radix`, or 0) and `values(i, v)` (each value expression as float).
     Each method loads the columns it reads first (`Emitter.loads`)."""
-    em.used.clear()
-    p, _ = em.emit(pred)
-    pred_body = [*em.loads(), f"    return {p};"]
-    vals = [f"    v[{k}] = (float){em.emit(e)[0]};"
-            for k, e in enumerate(values)]
-    vals = [*em.loads(), *vals]
-    if radix:
-        terms = " + ".join(f"(int){em.col(g)[0]} * {_int_literal(st)}"
-                           for g, _d, st in radix)
-        group = [*em.loads(), f"    const int g = {terms};",
-                 f"    return g < 0 ? 0 : (g > {n_groups - 1} ? "
-                 f"{n_groups - 1} : g);"]
-    else:
-        group = ["    return 0;"]
+    pred_body, group, vals = _bodies(em, pred, values, radix, n_groups)
     return "\n".join([
         "struct Src {", *em.members(),
         "  __device__ __forceinline__ bool pred(long long i) const {",
@@ -381,6 +396,72 @@ def functor_source(em: Emitter, pred, values: list = (), radix=(),
         *group, "  }",
         "  __device__ __forceinline__ void values(long long i, float* v)"
         " const {", *vals, "  }", "};"])
+
+
+# rows of one grid-stride step of a warp of the register regime, the slice
+# of a column a stage holds (csrc/filter_agg.cuh: kStageRows)
+SLICE_ROWS = 128
+_ELEM_BYTES = {"int": 4, "float": 4, "bool": 1}
+_VEC = {"int": "int4", "float": "float4", "bool": "uchar4"}
+
+
+def stage_layout(em: Emitter, staged) -> list[tuple[int, int, int]]:
+    """(column index, element bytes, byte offset in a stage) of each
+    staged column (names, in any order), in argument order."""
+    out, off = [], 0
+    for k, c in enumerate(em.cols):
+        if c in staged:
+            size = _ELEM_BYTES[em.col_types[c]]
+            out.append((k, size, off))
+            off += size * SLICE_ROWS
+    return out
+
+
+def stage_source(em: Emitter, pred, values: list, radix, n_groups: int,
+                 staged=()) -> str:
+    """`struct Stage : Src`: the staged columns of the staged batched
+    aggregation (`csrc/filter_agg.cuh`'s `agg_staged_kernel`): each
+    `staged` column (a name; every binding shares it) has a slice of
+    SLICE_ROWS rows (a warp's step) at its offset in a stage of shared
+    memory; `load` takes a lane's quad of each into registers (`q<k>[4]`,
+    one vector load each) and `pred_q`, `group_q`, `values_q` evaluate
+    row i, slot r of the quad, from those registers and the other
+    columns from device memory."""
+    layout = stage_layout(em, staged)
+    ks = {k for k, _s, _o in layout}
+    nbytes = sum(size for _k, size, _o in layout) * SLICE_ROWS
+    each = [f"    f(reinterpret_cast<const unsigned char*>(c{k}), {size}, "
+            f"{off});" for k, size, off in layout]
+    load = []
+    for k, _size, off in layout:
+        ty = em.col_types[em.cols[k]]
+        vec = _VEC[ty]
+        get = (lambda c: f"w.{c} != 0") if ty == "bool" else \
+            (lambda c: f"w.{c}")
+        load.append(f"    {{ const {vec} w = reinterpret_cast<const {vec}*>"
+                    f"(stage + {off})[quad];")
+        load.append("      " + " ".join(f"q{k}[{r}] = {get(c)};"
+                                         for r, c in enumerate("xyzw"))
+                    + " }")
+    pred_body, group, vals = _bodies(em, pred, values, radix, n_groups,
+                                     staged=ks)
+    return "\n".join([
+        "struct Stage : Src {",
+        f"  static constexpr int kCols = {len(layout)};",
+        f"  static constexpr int kBytes = {nbytes};",
+        *[f"  {em.col_types[em.cols[k]]} q{k}[4];  // {em.cols[k]}, staged"
+          for k in sorted(ks)],
+        "  template <class F>",
+        "  __device__ __forceinline__ void each(F&& f) const {", *each,
+        "  }",
+        "  __device__ __forceinline__ void load(const unsigned char* stage,"
+        " int quad) {", *load, "  }",
+        "  __device__ __forceinline__ bool pred_q(long long i, int r)"
+        " const {", *pred_body, "  }",
+        "  __device__ __forceinline__ int group_q(long long i, int r)"
+        " const {", *group, "  }",
+        "  __device__ __forceinline__ void values_q(long long i, int r,"
+        " float* v) const {", *vals, "  }", "};"])
 
 
 def compact_pred_source(pred, em: Emitter) -> str:
@@ -444,21 +525,39 @@ def selective_agg_source(pred, values: list, radix, n_groups: int,
 
 
 def selective_agg_batch_source(pred, values: list, radix, n_groups: int,
-                               em: Emitter) -> str:
+                               em: Emitter, staged=()) -> str:
     """A library exporting `repro_selective_agg_batched`: the selective
-    aggregation over B bindings (`csrc/filter_agg.cuh`'s binding axis,
-    capacity 0), one launch with its fold in the register regime; B result
-    rows `out_row` words apart and one ticket a binding."""
+    aggregation over B bindings at capacity 0, one launch with its fold:
+    in the register regime the staged kernel (`csrc/filter_agg.cuh`, a
+    warp a binding, clusters of C blocks, the `staged` columns multicast
+    to each cluster's shared memory; `stage_source`), else the
+    shared-memory regime's binding axis; B result rows `out_row` words
+    apart and one ticket a binding.  `repro_selective_agg_batched_rows`
+    gives the workspace rows a binding needs,
+    `repro_selective_agg_batched_info` the staged instance's clusters
+    resident at once, shared memory, stages, staged columns and warps a
+    block."""
     nv = len(values)
     return "\n".join([
         _HEADER + '#include "filter_agg.cuh"', "",
         "namespace {", functor_source(em, pred, values, radix, n_groups),
-        *em.batch_struct(), "}  // namespace", "",
+        *em.batch_struct(),
+        stage_source(em, pred, values, radix, n_groups, staged),
+        f"static_assert({SLICE_ROWS} == repro::kStageRows, "
+        '"codegen.SLICE_ROWS");',
+        "}  // namespace", "",
         f'extern "C" int repro_selective_agg_batched({_BATCH_ARGS},',
-        "    long long n, int G, int nb, int* ws, int* out, long long out_row,",
-        "    int* ticket, cudaStream_t stream) {",
+        "    int C, long long n, int G, int nb, int* ws, int* out,",
+        "    long long out_row, int* ticket, cudaStream_t stream) {",
         "  Batch bt{};", *em.fill_batch("bt"),
-        f"  return repro::launch_agg_batch<Batch, {nv}, {n_groups}>(",
-        f"      bt, B, n, G, {nv}, nb, ws, out, out_row, ticket, nullptr,"
-        " stream);",
+        f"  return repro::launch_agg_staged<Batch, Stage, {nv}, {n_groups}>(",
+        f"      bt, B, C, n, G, {nv}, nb, ws, out, out_row, ticket, stream);",
+        "}", "",
+        'extern "C" int repro_selective_agg_batched_rows(int nb, int* out) {',
+        f"  return repro::agg_staged_rows<Batch, {nv}, {n_groups}>(nb, out);",
+        "}", "",
+        'extern "C" int repro_selective_agg_batched_info(int B, int C,'
+        " int* out) {",
+        f"  return repro::agg_staged_info<Batch, Stage, {nv}, {n_groups}>(B,"
+        " C, out);",
         "}", ""])

@@ -14,8 +14,10 @@ engine's bind-many pass) take B bindings at once, each operand either
 shared by every binding (one binding's shape) or batched (B in front),
 and return every output with B in front: slot b is the scalar form's
 output on binding b's operands.  On the card they are one launch for B
-bindings (`csrc/compact.cuh`'s binding axis); their plain versions loop
-over the bindings through the scalar plain versions.  A predicate's
+bindings (`csrc/compact.cuh`: the predicate's through the look-back
+scan's binding axis, the masks' through a wide-tile batched scan of
+their own); their plain versions loop over the bindings through the
+scalar plain versions.  A predicate's
 parameters reach a batched form as `param_vectors` makes them: float
 parameters as a float64 (B, nf) or shared (nf,) tensor, the others as
 int64, with their kinds.
@@ -165,6 +167,8 @@ def compact_pred_batched_plain(cols: dict, fp, ip, kinds, pred_fn,
 # ---------------------------------------------------------------------------
 
 TILE_ROWS = 4096        # csrc/compact.cuh: kCompactRows
+BATCH_TILE_ROWS = 16384  # csrc/compact.cuh: kBatchTileRows (compact_batched)
+BATCH_PAD_WORDS = 32768  # csrc/compact.cuh: kBatchPadWords
 
 _STATIC: list = []
 
@@ -174,15 +178,23 @@ def _lib():
         lib = build.load("compact", build.static_source("compact"))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_compact_tile_rows.argtypes = []
+        lib.repro_compact_batched_tile_rows.argtypes = []
+        lib.repro_compact_batched_row_words.argtypes = [ll, i, i]
+        lib.repro_compact_batched_row_words.restype = ll
         lib.repro_compact.argtypes = [vp, ll, vp, ll, i, i, vp]
         lib.repro_compact_batched.argtypes = [vp, ll, i, ll, vp, ll, i, i,
                                               vp]
-        for fn in (lib.repro_compact_tile_rows, lib.repro_compact,
+        for fn in (lib.repro_compact_tile_rows,
+                   lib.repro_compact_batched_tile_rows, lib.repro_compact,
                    lib.repro_compact_batched):
             fn.restype = ctypes.c_int
-        if lib.repro_compact_tile_rows() != TILE_ROWS:
+        if (lib.repro_compact_tile_rows() != TILE_ROWS
+                or lib.repro_compact_batched_tile_rows() != BATCH_TILE_ROWS
+                or lib.repro_compact_batched_row_words(
+                    BATCH_TILE_ROWS + 1, 5, 1)
+                != batched_row_words(BATCH_TILE_ROWS + 1, 5, True)):
             raise RuntimeError("compact.cuh and compact.py disagree on the "
-                               "tile")
+                               "tiles or the batched workspace")
         _STATIC.append(lib)
     return _STATIC[0]
 
@@ -219,11 +231,36 @@ def _batch_workspace(B: int, n: int, capacity: int, translate: bool,
                        dtype=torch.int32, device=device)
 
 
-def _packed_view(ws, n: int, capacity: int, translate: bool):
+def _packed_view(ws, n: int, capacity: int, translate: bool,
+                 head: int | None = None):
     """The packed outputs `[count, idx, slot_of]` of a workspace (its
-    rows, B in front where it has them), a view of it."""
-    head = workspace_head(n)
+    rows, B in front where it has them), a view of it; `head` is the
+    words before idx (the scalar layout's by default)."""
+    head = workspace_head(n) if head is None else head
     return ws[..., head - 1:head + capacity + (n if translate else 0)]
+
+
+# `compact_batched`'s own layout (csrc/compact.cuh, the wide-tile batched
+# scan): a row a binding, [status 2 per tile][ticket][padding][total]
+# [idx][slot_of], the head a multiple of 4 words so idx is 16-byte aligned
+
+def batched_tiles(n: int) -> int:
+    """Tiles of one binding of `compact_batched`."""
+    return -(-n // BATCH_TILE_ROWS)
+
+
+def batched_head(n: int) -> int:
+    """int32 words before idx in a `compact_batched` row: the status
+    words, the ticket and the total, padded to a quad."""
+    return (2 * batched_tiles(n) + 2 + 3) // 4 * 4
+
+
+def batched_row_words(n: int, capacity: int, translate: bool) -> int:
+    """int32 words of one binding's `compact_batched` row, a quad
+    multiple."""
+    return (batched_head(n) + capacity + (n if translate else 0) + 3) \
+        // 4 * 4
+
 
 
 def rank_mask_cuda(mask, capacity: int, translate: bool):
@@ -275,12 +312,13 @@ def _compact_batched_cuda(mask, capacity: int, translate: bool):
     B, n = mask.shape
     _check_batch(B)
     _check_capacity(capacity)
-    ws = _batch_workspace(B, n, capacity, translate, mask.device)
+    ws = torch.empty((B, batched_row_words(n, capacity, translate)),
+                     dtype=torch.int32, device=mask.device)
     build.check(_lib().repro_compact_batched(
         build.ptr(mask), stride, B, n, build.ptr(ws), ws.numel(), capacity,
         int(translate), build.stream_ptr(mask)), "compact_batched")
     build.bump(launches, "compact_batched")
-    return _packed_view(ws, n, capacity, translate)
+    return _packed_view(ws, n, capacity, translate, batched_head(n))
 
 
 def pred_source(cols: dict, scalars: list, pred_fn) -> tuple[str, str]:

@@ -7,6 +7,13 @@ extern "C" {
 
 int repro_compact_tile_rows() { return repro::kCompactRows; }
 
+int repro_compact_batched_tile_rows() { return repro::kBatchTileRows; }
+
+long long repro_compact_batched_row_words(long long n, int cap,
+                                          int translate) {
+  return repro::batch_row_words(n, cap, translate != 0);
+}
+
 long long repro_compact_row_words(long long n, int cap, int translate) {
   return repro::compact_row_words(n, cap, translate != 0);
 }
@@ -21,13 +28,14 @@ int repro_compact(const uint8_t* mask, long long n, int* ws,
 }
 
 // B masks `mask_stride` bytes apart (0: one mask for all), B workspace
-// rows of repro_compact_row_words words (compact.cuh's batched layout):
-// one memset and one launch.
+// rows of repro_compact_batched_row_words words (compact.cuh's wide-tile
+// batched scan): one memset and one launch.
 int repro_compact_batched(const uint8_t* mask, long long mask_stride, int B,
                           long long n, int* ws, long long ws_words, int cap,
                           int translate, cudaStream_t stream) {
-  return repro::compact_batch_into(repro::MaskBatch{mask, mask_stride}, B, n,
-                                   ws, ws_words, cap, translate != 0, stream);
+  return repro::compact_batched_into(repro::MaskBatch{mask, mask_stride}, B,
+                                     n, ws, ws_words, cap, translate != 0,
+                                     stream);
 }
 
 }  // extern "C"

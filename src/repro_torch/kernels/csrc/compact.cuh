@@ -45,7 +45,9 @@
 //
 // The binding axis (the engine's bind-many pass, torch.func.vmap over a
 // query's parameters; the reference vmaps its Pallas kernel into a batch
-// grid axis): blockIdx.y is the binding.  Each binding b has its own
+// grid axis) of `compact_pred_batched` (the byte masks of
+// `compact_batched` have a kernel of their own, at the end of this
+// file): blockIdx.y is the binding.  Each binding b has its own
 // workspace row of compact_row_words words (status, ticket, total, idx),
 // its own slot_of row, and reads its rows through `bind.at(b)`: a mask
 // `stride` bytes from the last binding's, or a generated source whose
@@ -297,6 +299,247 @@ int compact_batch_into(const Bind& bind, int B, long long n, int* ws,
                            stream>>>(bind, n, (int)nb, ws, idx, cap,
                                      translate ? idx + cap : nullptr, row,
                                      row);
+  return (int)cudaGetLastError();
+}
+
+// -- the batched mask compaction: a wide-tile vector scan --------------------
+//
+// `compact_batched` (the vmapped `compact`) ranks B byte masks, n rows
+// each, in one launch of its own kernel: the look-back scan above is
+// kept for what it must guarantee (a tile numbered by its binding's
+// ticket waits only on tiles of its binding whose blocks already run;
+// status words as above), and redesigned for what it moves:
+//
+//   * a tile is 16,384 rows (512 threads x 32 rows), four times the scalar
+//     tile, so a binding draws four times fewer tickets and looks back
+//     four times less often;
+//   * a thread reads its 32 consecutive mask bytes as two 16-byte loads
+//     (three, funnelled by the mask's offset, where a binding's mask is
+//     not 16-byte aligned: a (B, n) mask of odd n puts every other row at
+//     an odd address), turns them into one 32-bit mask (byte_bits) and
+//     ranks them by popc; a warp scan and the warps' totals give each
+//     thread its rank in the tile;
+//   * warp w's lanes own consecutive 32-row groups of the tile's 1,024-row
+//     warp chunk, so lane r's bit mask is group r's ballot: the warp walks
+//     its 32 groups and writes each group's kept ids as one coalesced store
+//     in row order, with no staging in shared memory; slot_of goes out as
+//     eight 16-byte stores a thread (where its row is 16-byte aligned);
+//   * the pad zeros: one 2-D memset clears only every row's head (status
+//     words, ticket, total), and the kernel writes each idx word once.
+//     After a binding's tiles come its pad shares, one a 32,768 words of
+//     capacity, each a block drawing a later ticket: it waits for the last
+//     tile's inclusive prefix (the count), which a running block
+//     publishes, and zeroes its share of idx at or past the count with
+//     16-byte stores.  The ids below the count are the tiles' own stores.
+//
+// Workspace row of a binding (int32 words; rows batch_row_words apart,
+// each 16-byte aligned): [status 2 per tile][ticket][padding][total]
+// [idx cap][slot_of n, with translate]; the head (status to total) is a
+// multiple of 4 words, so idx is 16-byte aligned and [total, idx,
+// slot_of] is the packed output.  Bound: bytes (the masks once, the idx
+// rows and slot_of once; the ids are the kernel's only data-dependent
+// stores).
+constexpr int kBatchBlock = 512;
+constexpr int kBatchRowsPerThread = 32;
+constexpr int kBatchWarps = kBatchBlock / kWarp;
+constexpr int kBatchRowsPerWarp = kWarp * kBatchRowsPerThread;
+constexpr int kBatchTileRows = kBatchBlock * kBatchRowsPerThread;
+constexpr int kBatchPadWords = 32768;        // idx words a pad block zeroes
+
+inline long long batch_tiles(long long n) {
+  return (n + kBatchTileRows - 1) / kBatchTileRows;
+}
+
+// Words of a row's head: status words, ticket, total, padded to a quad.
+inline long long batch_head_words(long long n) {
+  return (2 * batch_tiles(n) + 2 + 3) / 4 * 4;
+}
+
+// Words of one binding's workspace row, or -1 for arguments out of range.
+inline long long batch_row_words(long long n, int cap, bool translate) {
+  if (n < 0 || n >= INT_MAX || cap < 0) return -1;
+  return (batch_head_words(n) + cap + (translate ? n : 0) + 3) / 4 * 4;
+}
+
+inline long long batch_pad_blocks(int cap) {
+  return (cap + (long long)kBatchPadWords - 1) / kBatchPadWords;
+}
+
+// Four mask bytes as four bits, bit r set where byte r is nonzero.
+__device__ __forceinline__ unsigned byte_bits(unsigned w) {
+  const unsigned hi = (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+  return ((hi >> 7) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ unsigned quad_bits(uint4 u) {
+  return byte_bits(u.x) | byte_bits(u.y) << 4 | byte_bits(u.z) << 8 |
+         byte_bits(u.w) << 12;
+}
+
+// Bit j of the result: row r0 + j of `mask` (n rows) is valid.  Rows
+// wholly below n are read 16 bytes at a time: two loads where the rows
+// start 16-byte aligned, else three aligned loads (each holds a byte of
+// the rows, so none leaves the mask's allocation) shifted into place.
+__device__ __forceinline__ unsigned mask_bits32(const uint8_t* mask,
+                                                long long r0, long long n) {
+  const uint8_t* a = mask + r0;
+  if (r0 + kBatchRowsPerThread <= n) {
+    const unsigned s = (unsigned)((size_t)a & 15);
+    if (s == 0) {
+      const uint4* p = reinterpret_cast<const uint4*>(a);
+      return quad_bits(__ldg(p)) | quad_bits(__ldg(p + 1)) << 16;
+    }
+    const uint4* p = reinterpret_cast<const uint4*>(a - s);
+    const unsigned long long bits =
+        (unsigned long long)quad_bits(__ldg(p)) |
+        (unsigned long long)quad_bits(__ldg(p + 1)) << 16 |
+        (unsigned long long)quad_bits(__ldg(p + 2)) << 32;
+    return (unsigned)(bits >> s);
+  }
+  unsigned bits = 0;
+  for (int j = 0; j < kBatchRowsPerThread && r0 + j < n; ++j)
+    bits |= (a[j] != 0 ? 1u : 0u) << j;
+  return bits;
+}
+
+// Binding blockIdx.y: mask `bind.at(b)`, workspace row b (`row` words
+// apart, head `head` words).  A block is a tile or, past the binding's
+// n_tiles tickets, a pad share.
+template <class Bind>
+__global__ void __launch_bounds__(kBatchBlock)
+compact_batched_kernel(Bind bind, long long n, int n_tiles, int* ws0,
+                       long long row, long long head, int cap,
+                       int translate) {
+  __shared__ int s_tile, s_offset;
+  __shared__ int s_warp[kBatchWarps];       // warp totals, then prefixes
+  const long long b = blockIdx.y;
+  int* ws = ws0 + b * row;
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(ws);
+  int* ticket = ws + 2 * n_tiles;
+  int* total = ws + head - 1;
+  int* idx = ws + head;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+
+  if (tile >= n_tiles) {            // a pad share: zeros at or past the count
+    if (threadIdx.x == 0) {
+      int count = 0;
+      if (n_tiles > 0) {
+        unsigned long long w;
+        while (((w = load_status(&status[n_tiles - 1])) >> 32) != 2)
+          __nanosleep(64);
+        count = (int)(unsigned)w;
+      }
+      s_offset = count;
+    }
+    __syncthreads();
+    long long lo = (long long)(tile - n_tiles) * kBatchPadWords;
+    const long long hi = lo + kBatchPadWords < cap ? lo + kBatchPadWords : cap;
+    if (lo < s_offset) lo = s_offset;
+    long long a = (lo + 3) / 4 * 4;   // idx is 16-byte aligned
+    if (a > hi) a = hi;
+    for (long long i = lo + threadIdx.x; i < a; i += kBatchBlock) idx[i] = 0;
+    for (long long q = a / 4 + threadIdx.x; q < hi / 4; q += kBatchBlock)
+      reinterpret_cast<int4*>(idx)[q] = make_int4(0, 0, 0, 0);
+    const long long t = hi / 4 * 4 > a ? hi / 4 * 4 : a;
+    for (long long i = t + threadIdx.x; i < hi; i += kBatchBlock) idx[i] = 0;
+    return;
+  }
+
+  const auto src = bind.at((int)b);
+  const long long base = (long long)tile * kBatchTileRows;
+  const long long wrow = base + (long long)warp * kBatchRowsPerWarp;
+  const long long r0 = wrow + lane * kBatchRowsPerThread;
+  const unsigned bits = mask_bits32(src.mask, r0, n);
+
+  // the thread's rank in the tile: a warp scan, then the warps' totals
+  const int c = __popc(bits);
+  int incl = c;
+#pragma unroll
+  for (int o = 1; o < kWarp; o *= 2) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == kWarp - 1) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kBatchWarps ? s_warp[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int o = 1; o < kWarp; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wi += t;
+    }
+    const int agg = __shfl_sync(0xffffffffu, wi, kWarp - 1);
+    if (lane < kBatchWarps) s_warp[lane] = wi - w;
+    int excl = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(&status[0], kTilePrefix | (unsigned)agg);
+    } else {
+      excl = look_back(status, tile, agg);
+    }
+    if (lane == 0) {
+      s_offset = excl;
+      if (tile == n_tiles - 1) *total = excl + agg;
+    }
+  }
+  __syncthreads();
+  const int e = s_offset + s_warp[warp] + incl - c;
+
+  // group r of the warp's chunk (rows wrow + 32 r ..) is lane r's mask:
+  // its kept ids, in row order, as one coalesced store of the warp
+  const unsigned lt = (1u << lane) - 1u;
+  if (__any_sync(0xffffffffu, bits != 0)) {
+    for (int r = 0; r < kWarp; ++r) {
+      const unsigned mr = __shfl_sync(0xffffffffu, bits, r);
+      const int er = __shfl_sync(0xffffffffu, e, r);
+      if ((mr >> lane) & 1u) {
+        const int p = er + __popc(mr & lt);
+        if (p < cap) idx[p] = (int)(wrow + r * kBatchRowsPerThread + lane);
+      }
+    }
+  }
+  if (translate) {                  // each row's rank, -1 where not valid
+    int* slot_of = idx + cap;
+    int p = e;
+    if (r0 + kBatchRowsPerThread <= n && ((size_t)(slot_of + r0) & 15) == 0) {
+      int4* out = reinterpret_cast<int4*>(slot_of + r0);
+#pragma unroll
+      for (int q = 0; q < kBatchRowsPerThread / 4; ++q) {
+        int v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = (bits >> (4 * q + k)) & 1u ? p++ : -1;
+        out[q] = make_int4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      for (int j = 0; j < kBatchRowsPerThread && r0 + j < n; ++j)
+        slot_of[r0 + j] = (bits >> j) & 1u ? p++ : -1;
+    }
+  }
+}
+
+// B masks through `bind` (MaskBatch), binding b's workspace row b x
+// batch_row_words words into `ws`: one 2-D memset of every row's head and
+// one launch of (tiles + pad shares) x B blocks.
+template <class Bind>
+int compact_batched_into(const Bind& bind, int B, long long n, int* ws,
+                         long long ws_words, int cap, bool translate,
+                         cudaStream_t stream) {
+  const long long row = batch_row_words(n, cap, translate);
+  if (row < 0 || cap < 1 || B < 1 || B > 65535 || ws_words < row * B)
+    return (int)cudaErrorInvalidValue;
+  const long long head = batch_head_words(n);
+  cudaError_t err = cudaMemset2DAsync(ws, 4 * (size_t)row, 0,
+                                      4 * (size_t)head, (size_t)B, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = batch_tiles(n);
+  compact_batched_kernel<Bind>
+      <<<dim3((unsigned)(tiles + batch_pad_blocks(cap)), (unsigned)B),
+         kBatchBlock, 0, stream>>>(bind, n, (int)tiles, ws, row, head, cap,
+                                   translate ? 1 : 0);
   return (int)cudaGetLastError();
 }
 

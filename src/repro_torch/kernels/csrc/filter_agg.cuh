@@ -77,7 +77,9 @@
 // from the scalar instance's residency), so every binding runs the scalar
 // launch's block partition and fold order: in the register regime binding
 // b's sums are the scalar launch's on b's operands bit for bit.  B
-// bindings are one launch (two in the shared-memory regime).
+// bindings are one launch (two in the shared-memory regime).  That is
+// `filter_agg_batched`'s layout; the batched selective aggregation's
+// register regime has a kernel of its own (agg_staged_kernel, below).
 #pragma once
 
 #include <atomic>
@@ -563,6 +565,555 @@ int launch_reg(Bind bind, int B, long long n, int G, int A, int* ws, int nb,
                                          out_row, ticket, nullptr, stream);
 }
 
+// -- the staged register regime: a warp a binding, columns multicast ------
+//
+// The batched selective aggregation (`selective_filter_agg_batched`, a
+// generated source over B bindings) in the register regime.  Binding b's
+// partition, quad order and fold are the scalar launch's, so its sums are
+// the scalar launch's bit for bit: `parts` blocks of 256 scalar threads
+// (the scalar instance's residency, its grid), scalar thread t adding
+// quads t, t + stride, ... (stride = parts x 256 quads) and its tail row,
+// each warp's sums added by the shuffle tree, each block's warps in warp
+// order into its partial row, and the partial rows folded in the order of
+// agg_regs.cuh.
+//
+// What bounds the scalar layout at B bindings is not the columns' reads
+// from device memory but their delivery into the SMs: every binding's
+// block needs every shared column's rows in its own SM, B times the
+// columns in all (10.75 GB for q1 at 64 bindings), and one SM takes them
+// in at a few tens of GB/s.  The register accumulators (G x A sums a
+// scalar thread) allow about one block of 256 threads of a binding on an
+// SM at once, so one SM cannot serve many bindings' blocks from one
+// copy.  A warp can: a work unit here is one warp of one partition, the
+// 32 scalar threads t = 32 u + lane (u = 8 x + w: partition x, warp w),
+// all their steps, and a block is 8 or 16 warps, each warp that unit for
+// another binding.  So the unit's rows enter the SM once for all of the
+// block's bindings.
+//
+//   * clusters of C blocks along the bindings (C x warps-a-block bindings a
+//     group, B padded to whole groups); the grid is C x K, K the clusters
+//     resident at once on the card rounded down to a multiple of the
+//     groups, which share the units x groups work items round robin, one
+//     wave in all: cluster k serves group k mod groups, so a warp's
+//     binding is fixed;
+//   * up to kStepsPerSlot steps of a unit (each its warp's 128 rows:
+//     kStageRows) are one slot of the cluster's ring: every staged
+//     column's slice of each goes once into the shared memory of all C
+//     blocks by a bulk copy with multicast, column c issued by block c
+//     mod C, a lane a copy; a ring of agg_stages(bytes) slots keeps the
+//     next ones in flight;
+//   * a block's last warp is its producer: per slot it waits for the
+//     block's compute warps to be done with the slot's last use (a `done`
+//     mbarrier, one arrival a warp), tells every block of the cluster so
+//     (an `empty` mbarrier in each, C arrivals), waits for all of them,
+//     and issues the slot's copies, which land on each block's `full`
+//     mbarrier (its expected bytes); a compute warp only waits for `full`
+//     and arrives on `done`, so neither the cluster's arrivals nor the
+//     copies' issue ever holds the adds up;
+//   * a staged column is one every binding shares, contiguous, 16-byte
+//     aligned (the wrapper decides; filter_agg.staged_columns); the
+//     others, and the parameters, are read from device memory as in the
+//     scalar kernel, as is a step a warp's quads pass the last whole quad
+//     in, and the tail rows;
+//   * a unit's warp sums go to its binding's warp row (x, w) in the
+//     workspace; once all its units are written, each warp draws its
+//     binding's ticket (K / groups warps serve a binding), and the block
+//     of the last one has its compute warps add each partition's 8 warp
+//     rows in warp order (the scalar block's sum) and fold the partial
+//     rows;
+//   * padding warps (binding >= B) take part in the barriers and write
+//     nothing; a cluster barrier at the start (the barriers initialised)
+//     and the end (no block leaves while a peer may still arrive on its
+//     barriers).
+//
+// `Stage` derives from the binding's row source (generated by codegen.py)
+// and adds the staged columns: `kCols`, `kBytes` (one stage), `each(f)`
+// (f(column, element bytes, offset in the stage) for each), `load(stage,
+// quad)` (a lane's quad of each staged column, one vector load each, into
+// registers) and `pred_q`, `group_q`, `values_q`, which read those
+// registers (row i is slot r of the quad) and device memory for the rest.
+//
+// Workspace of a binding (9 x parts rows of agg_row_words words, the
+// binding's at b x 9 x parts rows): the warp rows of unit u at row u, the
+// partial rows at 8 parts + x.  Bound on the card: the operands' bytes
+// once, or the register step's G x (A + 1) predicated adds a row and
+// binding (q1: G = 6, A = 7).
+constexpr int kStageRows = 4 * kWarp;         // a warp's rows of a step
+constexpr int kAggWarps = kAggBlock / kWarp;  // warps of a scalar block
+constexpr int kAggMaxCluster = 8;             // the portable cluster size
+constexpr int kStageBudget = 128 * 1024;      // bytes of a block's ring
+constexpr int kMaxStages = 16;
+constexpr int kStepsPerSlot = 8;              // a unit's steps a ring slot
+
+__host__ __device__ constexpr int agg_stages(int bytes) {
+  return bytes <= 0 ? 1
+                    : (kStageBudget / bytes < 2
+                           ? 2
+                           : (kStageBudget / bytes > kMaxStages
+                                  ? kMaxStages
+                                  : kStageBudget / bytes));
+}
+
+// Warps (bindings) a block of the staged kernel: 8 for up to 8 bindings,
+// else 16 (registers allow 16 warps of the register step on an SM).
+__host__ __device__ constexpr int staged_warps(int B) {
+  return B <= 8 ? 8 : 16;
+}
+
+// Rows i .. i + 3, the staged columns in the quad's registers.
+template <class St, int AM>
+__device__ __forceinline__ void load_quad_staged(const St& s, long long i,
+                                                 bool* m, int* g,
+                                                 float (*v)[AM]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int k = 0; k < AM; ++k) v[r][k] = 0.f;
+    m[r] = s.pred_q(i + r, r);
+    g[r] = s.group_q(i + r, r);
+    s.values_q(i + r, r, v[r]);
+  }
+}
+
+// The steps in which every quad of unit u (its first quad 32 u) lies below
+// the last quad (32-bit: n < 2^31).
+__device__ __forceinline__ unsigned unit_full_steps(unsigned u, unsigned quads,
+                                                    unsigned stride) {
+  const unsigned first = u * kWarp;
+  return quads >= first + kWarp ? (quads - first - kWarp) / stride + 1 : 0;
+}
+
+// A barrier of the block's compute warps (`threads` of them), apart from
+// its producer warp.
+__device__ __forceinline__ void compute_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" :: "r"(threads) : "memory");
+}
+
+// One arrival of this thread on the block's own barrier `bar`.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// The register regime's fold (fold_rows, in its order: fold_lane, then
+// the tree of fold_tree) by the block's compute warps (`threads` >=
+// kFoldThreads of them), their first kFoldThreads threads folding.
+__device__ __forceinline__ void fold_rows_compute(const int* ws, int rows,
+                                                  int* out, int stride, int O,
+                                                  int GA, int threads) {
+  __shared__ WordQuad s_fold[kFoldThreads];
+  const int quads = (O + 3) / 4, cols = fold_cols(quads);
+  const int W = kFoldThreads / cols;
+  const int t = threadIdx.x, q = t % cols, r = t / cols;
+  const bool live = t < kFoldThreads && q < quads;
+  bool is_sum[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) is_sum[c] = 4 * q + c < GA;
+  WordQuad acc = {{0, 0, 0, 0}};
+  if (live) fold_lane(ws + 4 * q, stride, rows, r, W, is_sum, acc.w);
+  if (t < kFoldThreads) s_fold[t] = acc;
+  compute_sync(threads);
+  for (int h = W / 2; h > 0; h /= 2) {
+    if (live && r < h) {
+      WordQuad a = s_fold[r * cols + q];
+      const WordQuad b = s_fold[(r + h) * cols + q];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a.w[c] = add_word(a.w[c], b.w[c], is_sum[c]);
+      s_fold[r * cols + q] = a;
+    }
+    compute_sync(threads);
+  }
+  if (live && r == 0) *reinterpret_cast<WordQuad*>(out + 4 * q) = s_fold[t];
+}
+
+// KB compute warps (a binding each) and, last, the producer warp.
+template <class Bind, class Stage, int GM, int AM, int KB>
+__global__ void __launch_bounds__((KB + 1) * kWarp, 1)
+agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
+                  int groups, int* ws0, int* out0, long long out_row,
+                  int* ticket0) {
+  using Src = bound_source_t<Bind>;
+  constexpr int kSlot = kStepsPerSlot * Stage::kBytes;   // a slot's bytes
+  constexpr int S = agg_stages(kSlot);
+  constexpr int kCompute = KB * kWarp;
+  static_assert(kCompute >= kFoldThreads, "the fold takes 256 threads");
+  __shared__ unsigned long long s_full[S], s_done[S], s_empty[S];
+  __shared__ int s_last[KB];
+  extern __shared__ __align__(128) unsigned char s_stage[];
+  const int lane = threadIdx.x % kWarp, kb = threadIdx.x / kWarp;
+  const unsigned K = gridDim.y, units = (unsigned)parts * kAggWarps;
+  const unsigned items = units * (unsigned)groups;
+  const unsigned quads = (unsigned)(n / 4);
+  const unsigned stride = (unsigned)parts * kAggBlock;
+  const int GA = G * A, O = agg_outputs(G, A), words = agg_row_words(G, A);
+  const long long rows_b = (long long)(kAggWarps + 1) * parts;
+  // K is a multiple of groups, so cluster k serves binding group k % groups
+  // in every item it takes: a warp's binding is fixed
+  const int group = (int)(blockIdx.y % (unsigned)groups);
+  unsigned rank = 0, C = 1;
+  if constexpr (Stage::kCols > 0) {
+    rank = cluster_rank();
+    C = cluster_blocks();
+  }
+  if (threadIdx.x < KB) s_last[threadIdx.x] = 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      mbar_init(&s_full[k], 1);
+      mbar_init(&s_done[k], KB);
+      mbar_init(&s_empty[k], C);
+    }
+    mbar_init_fence();
+  }
+  if constexpr (Stage::kCols > 0)
+    cluster_sync();     // every barrier of the cluster set before a copy
+  else
+    __syncthreads();
+
+  if (kb == KB) {       // the producer warp: the ring's copies
+    if constexpr (Stage::kCols > 0) {
+      Stage st;         // the staged columns, which every binding shares
+      static_cast<Src&>(st) = bind.at(0);
+      // this lane's (column, step) pair of each round of kWarp pairs: the
+      // block copies column c where c mod C is its rank
+      constexpr int kRounds =
+          (Stage::kCols * kStepsPerSlot + kWarp - 1) / kWarp;
+      const unsigned char* lsrc[kRounds];
+      int lsize[kRounds], loff[kRounds], lstep[kRounds];
+#pragma unroll
+      for (int rd = 0; rd < kRounds; ++rd) {
+        const int p = rd * kWarp + lane, want = p / kStepsPerSlot;
+        lstep[rd] = p % kStepsPerSlot;
+        lsrc[rd] = nullptr;
+        lsize[rd] = loff[rd] = 0;
+        int c = 0, o = 0;
+        st.each([&](const unsigned char* col, int sz, int of) {
+          if ((unsigned)(c++ % (int)C) == rank && o++ == want) {
+            lsrc[rd] = col;
+            lsize[rd] = sz;
+            loff[rd] = of;
+          }
+        });
+      }
+      unsigned j = 0;   // the ring's slot: stage j % S, its use j / S
+      for (unsigned i = blockIdx.y; i < items; i += K) {
+        const unsigned u = i / (unsigned)groups;
+        const unsigned full = unit_full_steps(u, quads, stride);
+        for (unsigned s0 = 0; s0 < full; s0 += kStepsPerSlot, ++j) {
+          const int nt = full - s0 < (unsigned)kStepsPerSlot
+                             ? (int)(full - s0) : kStepsPerSlot;
+          const int k = (int)(j % S);
+          if (j >= S) {   // stage k's last use, slot j - S, released by
+            const unsigned ph = (j / S - 1) & 1;   // every block
+            mbar_wait(&s_done[k], ph);
+            if (lane < (int)C) mbar_arrive_cluster(&s_empty[k], lane);
+            mbar_wait_cluster(&s_empty[k], ph);
+          }
+          unsigned char* slot = s_stage + (size_t)k * kSlot;
+          if (lane == 0) mbar_expect_tx(&s_full[k], nt * Stage::kBytes);
+          __syncwarp();
+          // (column, step) pairs, a lane each: one copy instruction for
+          // all of them at once
+#pragma unroll
+          for (int rd = 0; rd < kRounds; ++rd) {
+            const int t = lstep[rd];
+            const long long row0 =
+                4ll * ((long long)(s0 + t) * stride + (long long)u * kWarp);
+            if (lsrc[rd] != nullptr && t < nt)
+              bulk_copy_multicast(slot + t * Stage::kBytes + loff[rd],
+                                  lsrc[rd] + row0 * lsize[rd],
+                                  (unsigned)(lsize[rd] * kStageRows),
+                                  &s_full[k],
+                                  (unsigned short)((1u << C) - 1u));
+          }
+        }
+      }
+    }
+  } else {              // a compute warp: binding (group, block, kb)
+    const int bind_at = (group * (int)gridDim.x + blockIdx.x) * KB + kb;
+    const bool live = bind_at < B;
+    Stage st;
+    static_cast<Src&>(st) = bind.at(live ? bind_at : 0);
+    const Src& src = st;
+    int* ws = ws0 + (long long)bind_at * rows_b * words;
+    unsigned j = 0;
+    for (unsigned i = blockIdx.y; i < items; i += K) {
+      const unsigned u = i / (unsigned)groups;
+      RegAcc<GM, AM> acc;
+      acc.zero();
+      const long long t = (long long)u * kWarp + lane;   // scalar thread
+      const unsigned steps =
+          u * kWarp < quads ? (quads - u * kWarp + stride - 1) / stride : 0;
+      unsigned full = 0;
+      if constexpr (Stage::kCols > 0) {
+        full = unit_full_steps(u, quads, stride);
+        for (unsigned s0 = 0; s0 < full; s0 += kStepsPerSlot, ++j) {
+          const int nt = full - s0 < (unsigned)kStepsPerSlot
+                             ? (int)(full - s0) : kStepsPerSlot;
+          const int k = (int)(j % S);
+          mbar_wait(&s_full[k], (j / S) & 1);
+          if (live) {
+            const unsigned char* slot = s_stage + (size_t)k * kSlot;
+            for (int ts = 0; ts < nt; ++ts) {
+              st.load(slot + ts * Stage::kBytes, lane);
+              bool m[4];
+              int g[4];
+              float v[4][AM];
+              load_quad_staged(st,
+                               4 * ((long long)(s0 + ts) * stride + t), m, g,
+                               v);
+#pragma unroll
+              for (int r = 0; r < 4; ++r) acc.add(m[r], g[r], G, v[r]);
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&s_done[k]);   // the warp is done
+        }
+      }
+      if (!live) continue;
+      for (unsigned s = full; s < steps; ++s) {    // quads past the last
+        const long long q = (long long)s * stride + t;   // whole step:
+        if (q < quads) {                                 // device memory
+          bool m[4];
+          int g[4];
+          float v[4][AM];
+          load_quad(src, 4 * q, m, g, v);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc.add(m[r], g[r], G, v[r]);
+        }
+      }
+      if (t < n - 4ll * quads) {                   // the last n % 4 rows
+        bool m;
+        int g;
+        float v[AM];
+        load_row(src, 4ll * quads + t, &m, &g, v);
+        acc.add(m, g, G, v);
+      }
+      // the warp's sums by the shuffle tree, into its warp row u: G and A
+      // are the instance's GM and AM (launch_agg_staged; AM is 1 where A
+      // is 0), so the GM x AM trees unroll and interleave
+      float sums[GM][AM];
+      int cnts[GM];
+#pragma unroll
+      for (int jg = 0; jg < GM; ++jg) {
+#pragma unroll
+        for (int k = 0; k < AM; ++k) sums[jg][k] = warp_sum(acc.sum[jg][k]);
+        cnts[jg] = warp_sum(acc.cnt[jg]);
+      }
+      const int kept = warp_sum(acc.kept);
+      if (lane == 0) {   // the row [sums][counts][kept][0 ...], by quads
+        constexpr int kWords = (GM * AM + GM + 1 + 3) / 4 * 4;
+        int w[kWords];
+#pragma unroll
+        for (int o = 0; o < kWords; ++o) w[o] = 0;
+        if (A == AM) {   // A is AM, or 0 where AM is 1: constant indices
+#pragma unroll
+          for (int jg = 0; jg < GM; ++jg) {
+#pragma unroll
+            for (int k = 0; k < AM; ++k)
+              w[jg * AM + k] = __float_as_int(sums[jg][k]);
+            w[GM * AM + jg] = cnts[jg];
+          }
+          w[GM * AM + GM] = kept;
+        } else {
+#pragma unroll
+          for (int jg = 0; jg < GM; ++jg) w[jg] = cnts[jg];
+          w[GM] = kept;
+        }
+        int4* row = reinterpret_cast<int4*>(ws + (long long)u * words);
+#pragma unroll
+        for (int q = 0; q < kWords / 4; ++q)
+          if (4 * q < words)
+            row[q] = make_int4(w[4 * q], w[4 * q + 1], w[4 * q + 2],
+                               w[4 * q + 3]);
+      }
+    }
+    // every unit of the binding's group that this warp took is written:
+    // the binding's ticket counts the K / groups warps that serve it
+    if (live && lane == 0) {
+      __threadfence();            // the rows before the ticket
+      if (atomicAdd(ticket0 + bind_at, 1) == (int)(K / groups) - 1)
+        s_last[kb] = 1;
+    }
+    compute_sync(kCompute);
+    for (int f = 0; f < KB; ++f) {    // a binding's last warp: the fold
+      if (!s_last[f]) continue;
+      const int fb = (group * (int)gridDim.x + blockIdx.x) * KB + f;
+      int* fws = ws0 + (long long)fb * rows_b * words;
+      int* prow = fws + (long long)kAggWarps * parts * words;
+      __threadfence();                // every warp row, after the ticket
+      for (long long e = threadIdx.x; e < (long long)parts * words;
+           e += kCompute) {           // partition x: its warps in order
+        const long long x = e / words;
+        const int o = (int)(e % words);
+        const int* w0 = fws + x * kAggWarps * words + o;
+        int v = 0;
+        if (o < GA) {
+          float s = 0.f;
+#pragma unroll
+          for (int w = 0; w < kAggWarps; ++w)
+            s += __int_as_float(__ldcg(w0 + w * words));
+          v = __float_as_int(s);
+        } else if (o < O) {
+#pragma unroll
+          for (int w = 0; w < kAggWarps; ++w) v += __ldcg(w0 + w * words);
+        }
+        prow[e] = v;
+      }
+      __threadfence();
+      compute_sync(kCompute);
+      fold_rows_compute(prow, parts, out0 + (long long)fb * out_row, words,
+                        O, GA, kCompute);
+      if (threadIdx.x == 0) ticket0[fb] = 0;
+      compute_sync(kCompute);
+    }
+  }
+  if constexpr (Stage::kCols > 0) cluster_sync();
+}
+
+template <class Stage>
+constexpr size_t stage_smem() {
+  return Stage::kBytes > 0
+             ? (size_t)agg_stages(kStepsPerSlot * Stage::kBytes) *
+                   kStepsPerSlot * Stage::kBytes
+             : 0;
+}
+
+// The staged kernel's launch configuration: C x K blocks of KB compute
+// warps and a producer warp, K clusters of C along x, its ring of stages.
+template <class K>
+int staged_config(K kernel, int C, int clusters, int KB, size_t smem,
+                  cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                  cudaLaunchAttribute* attr) {
+  if (smem > 0) {    // the ring beside the static scratch may pass 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)C, (unsigned)clusters);
+  cfg->blockDim = dim3((unsigned)((KB + 1) * kWarp));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+// Clusters of C blocks of `kernel` resident on the current device at
+// once (cudaOccupancyMaxActiveClusters), asked on a device's first call
+// for each C only and kept in `known`.
+template <class K>
+int active_clusters(K kernel, int C, int KB, size_t smem,
+                    std::atomic<int> (*known)[4], int* out) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const int c = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
+  if (dev < kMaxDevices) {
+    *out = known[dev][c].load(std::memory_order_relaxed);
+    if (*out > 0) return 0;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = staged_config(kernel, C, 1, KB, smem, 0, &cfg, &attr);
+  if (err != 0) return err;
+  const cudaError_t e2 = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  if (e2 != cudaSuccess) return (int)e2;
+  if (*out < 1) return (int)cudaErrorInvalidConfiguration;
+  if (dev < kMaxDevices) known[dev][c].store(*out, std::memory_order_relaxed);
+  return 0;
+}
+
+template <class Bind, class Stage, int GM, int AM, int KB>
+int staged_clusters(int C, int* out) {
+  static std::atomic<int> known[kMaxDevices][4];
+  return active_clusters(agg_staged_kernel<Bind, Stage, GM, AM, KB>, C, KB,
+                         stage_smem<Stage>(), known, out);
+}
+
+// The partitions of the staged launch (the scalar instance's grid): its
+// workspace holds 9 x parts rows a binding.
+template <class Bind, int GM, int AM>
+int staged_parts(int nb, int* out) {
+  int resident = 0;
+  const int err =
+      reg_resident<bound_source_t<Bind>, GM, AM, false>(&resident);
+  if (err != 0) return err;
+  *out = nb < resident ? nb : resident;
+  return 0;
+}
+
+template <class Bind, class Stage, int GM, int AM, int KB>
+int launch_staged_warps(Bind bind, int B, int C, long long n, int G, int A,
+                        int* ws, int nb, int* out, long long out_row,
+                        int* ticket, cudaStream_t stream) {
+  int parts = 0, clusters = 0;
+  int err = staged_parts<Bind, GM, AM>(nb, &parts);
+  if (err == 0)
+    err = staged_clusters<Bind, Stage, GM, AM, KB>(C, &clusters);
+  if (err != 0) return err;
+  const int groups = (B + C * KB - 1) / (C * KB);
+  // one wave: the clusters resident at once share the units x groups
+  // work items round robin, as a multiple of groups (so that each cluster
+  // serves one group of bindings)
+  long long K = clusters;
+  const long long items = (long long)parts * kAggWarps * groups;
+  if (K > items) K = items;
+  K = K / groups * groups;
+  if (K < groups) K = groups;
+  auto kernel = agg_staged_kernel<Bind, Stage, GM, AM, KB>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = staged_config(kernel, C, (int)K, KB, stage_smem<Stage>(), stream,
+                      &cfg, &attr);
+  if (err != 0) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, bind, B, n, G, A,
+                                           parts, groups, ws, out, out_row,
+                                           ticket);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// B bindings in the staged register regime, C blocks a cluster (a power of
+// two up to kAggMaxCluster) of staged_warps(B) bindings each.  A refused
+// cluster launch returns its error.
+template <class Bind, class Stage, int GM, int AM>
+int launch_reg_staged(Bind bind, int B, int C, long long n, int G, int A,
+                      int* ws, int nb, int* out, long long out_row,
+                      int* ticket, cudaStream_t stream) {
+  if (C < 1 || C > kAggMaxCluster || (C & (C - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (staged_warps(B) == 8)
+    return launch_staged_warps<Bind, Stage, GM, AM, 8>(
+        bind, B, C, n, G, A, ws, nb, out, out_row, ticket, stream);
+  return launch_staged_warps<Bind, Stage, GM, AM, 16>(
+      bind, B, C, n, G, A, ws, nb, out, out_row, ticket, stream);
+}
+
+// What the staged instance takes on this card at B bindings, C blocks a
+// cluster: out[0] the clusters resident at once
+// (cudaOccupancyMaxActiveClusters), out[1] the ring's shared-memory
+// bytes, out[2] its stages, out[3] the staged columns, out[4] the warps
+// (bindings) a block; 0, or the error.
+template <class Bind, class Stage, int GM, int AM>
+int staged_info(int B, int C, int* out) {
+  const int err =
+      staged_warps(B) == 8
+          ? staged_clusters<Bind, Stage, GM, AM, 8>(C, &out[0])
+          : staged_clusters<Bind, Stage, GM, AM, 16>(C, &out[0]);
+  if (err != 0) return err;
+  out[1] = (int)stage_smem<Stage>();
+  out[2] = agg_stages(kStepsPerSlot * Stage::kBytes);
+  out[3] = Stage::kCols;
+  out[4] = staged_warps(B);
+  return 0;
+}
+
 // The shared regime and its second launch, B bindings.
 template <class Bind, int NV>
 int launch_shared(Bind bind, int B, long long n, int G, int A, int* ws,
@@ -643,6 +1194,51 @@ int launch_agg_batch(Bind bind, int B, long long n, int G, int A, int nb,
   }
   return launch_shared<Bind, NV>(bind, B, n, G, A, ws, nb, out, out_row,
                                  mask_out, stream);
+}
+
+// The batched selective aggregation (a generated `Batch` and its `Stage`):
+// the staged register regime where (GC, NV) takes the register regime,
+// else the shared-memory regime as launch_agg_batch (no cluster, nothing
+// staged).  `ws` holds B x 9 x parts rows in the staged regime
+// (agg_staged_parts), B x nb rows in the other.
+template <class Bind, class Stage, int NV, int GC>
+int launch_agg_staged(Bind bind, int B, int C, long long n, int G, int A,
+                      int nb, int* ws, int* out, long long out_row,
+                      int* ticket, cudaStream_t stream) {
+  constexpr int kV = NV > 0 ? NV : 1;
+  if (A != NV || G != GC || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (register_regime(GC, NV))
+    return launch_reg_staged<Bind, Stage, GC, kV>(bind, B, C, n, G, A, ws,
+                                                  nb, out, out_row, ticket,
+                                                  stream);
+  else
+    return launch_shared<Bind, NV>(bind, B, n, G, A, ws, nb, out, out_row,
+                                   nullptr, stream);
+}
+
+// The workspace rows a binding of launch_agg_staged needs: 9 x parts in
+// the staged register regime, nb in the shared-memory regime.
+template <class Bind, int NV, int GC>
+int agg_staged_rows(int nb, int* out) {
+  constexpr int kV = NV > 0 ? NV : 1;
+  if constexpr (register_regime(GC, NV)) {
+    const int err = staged_parts<Bind, GC, kV>(nb, out);
+    *out *= kAggWarps + 1;
+    return err;
+  } else {
+    *out = nb;
+    return 0;
+  }
+}
+
+template <class Bind, class Stage, int NV, int GC>
+int agg_staged_info(int B, int C, int* out) {
+  constexpr int kV = NV > 0 ? NV : 1;
+  if constexpr (register_regime(GC, NV))
+    return staged_info<Bind, Stage, GC, kV>(B, C, out);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 // The scalar launch: one binding.  `ws` holds nb x agg_row_words(G, A)

@@ -28,7 +28,11 @@ batched (B in front), and return every output with B in front: slot b is
 the scalar form's output on binding b's operands, in the register regime
 bit for bit (`csrc/filter_agg.cuh`'s binding axis).  On the card they
 are one launch for B bindings a chunk of value columns; their plain
-versions loop over the bindings through the scalar plain versions.
+versions loop over the bindings through the scalar plain versions.  The
+selective form runs a warp a binding in clusters of blocks along the
+bindings (`cluster_shape`) and stages the columns every binding shares
+(`staged_columns`) in each cluster's shared memory, each slice copied
+once a cluster; `staging` counts the launches that staged a column.
 
 Each batched form also has a packed output (`*_batched_packed`), the
 one tensor the engine's custom operators return (`ops.py`): the
@@ -60,6 +64,11 @@ from repro_torch.kernels.compact import (_batch_rows, _check_batch,
 launches = {"filter_agg": 0, "selective_filter_agg": 0,
             "selective_filter_agg_capacity": 0, "filter_agg_batched": 0,
             "selective_filter_agg_batched": 0}
+# the launches of `selective_filter_agg_batched` by the way their shared
+# columns reached the blocks: "staged" (at least one column multicast to
+# each cluster's shared memory) or "unstaged" (every column from device
+# memory)
+staging = {"staged": 0, "unstaged": 0}
 
 # one block holds G x (A + 1) 4-byte accumulators in shared memory; the
 # card's per-block opt-in limit is 227 KB, less the kernel's own scratch
@@ -203,6 +212,61 @@ def _lib():
     return _STATIC[0]
 
 
+# csrc/agg_regs.cuh: the register regime's limits
+REG_MAX_GROUPS, REG_MAX_VALS, REG_MAX_VALS_ONE_GROUP = 8, 8, 16
+CLUSTER_MAX = 2  # blocks a cluster: clusters of 2 fill every SM of an H100
+STAGE_BYTES_MAX = 64 * 1024   # a ring slot's bytes (half of kStageBudget)
+STEPS_PER_SLOT = 8      # csrc/filter_agg.cuh: kStepsPerSlot
+
+
+def register_regime(n_groups: int, n_vals: int) -> bool:
+    """Whether (G, A) takes the register regime (`register_regime` of
+    csrc/agg_regs.cuh)."""
+    return n_vals >= 0 and (
+        (n_groups == 1 and n_vals <= REG_MAX_VALS_ONE_GROUP)
+        or 1 <= n_groups <= REG_MAX_GROUPS and n_vals <= REG_MAX_VALS)
+
+
+def staged_warps(B: int) -> int:
+    """Bindings a block of the staged kernel takes, a warp each
+    (`staged_warps` of csrc/filter_agg.cuh)."""
+    return 8 if B <= 8 else 16
+
+
+def cluster_shape(B: int) -> tuple[int, int]:
+    """(C, B padded): the blocks a cluster of the staged kernel takes,
+    the least power of two at or above the blocks B bindings fill, up to
+    CLUSTER_MAX, and B padded to whole clusters (the padding warps take
+    part in the barriers and write nothing)."""
+    W = staged_warps(B)
+    C = 1
+    while C < min(-(-B // W), CLUSTER_MAX):
+        C *= 2
+    return C, -(-B // (C * W)) * C * W
+
+
+def staged_columns(cols: dict, n_groups: int, n_vals: int) -> tuple:
+    """The columns (names, in order) a batched selective launch stages:
+    in the register regime, each column every binding shares (one
+    binding's shape), contiguous, at a 16-byte aligned address, while a
+    ring slot's slices (STEPS_PER_SLOT x SLICE_ROWS rows each) fit
+    STAGE_BYTES_MAX; a batched (B, n), strided or unaligned column is read
+    from device memory."""
+    if not register_regime(n_groups, n_vals):
+        return ()
+    out, total = [], 0
+    for name, t in cols.items():
+        if t.ndim != 1 or (t.stride(0) != 1 and t.numel() > 1) \
+                or t.data_ptr() % 16:
+            continue
+        size = t.element_size() * codegen.SLICE_ROWS * STEPS_PER_SLOT
+        if total + size > STAGE_BYTES_MAX:
+            break
+        out.append(name)
+        total += size
+    return tuple(out)
+
+
 def _check_fits(n_groups: int, n_vals: int):
     if n_groups < 1:
         raise ValueError(f"n_groups must be positive (got {n_groups})")
@@ -255,16 +319,18 @@ def _ticket(device, stream, B: int = 1) -> torch.Tensor:
 SHARED_ALLOC_WORDS = 1 << 17
 
 
-def _result_rows(n: int, n_groups: int, n_vals: int, B: int, device):
-    """(nb, partials, results (B, row)): B x nb rows of G x A + G + 1
-    int32 words padded to a multiple of 4 (`csrc/filter_agg.cuh`), and
-    B more such rows for the results.  Small partials and the results are
-    one allocation, the results its last B rows, so a result keeps them
-    alive; larger partials are an allocation of their own, which the
-    caller holds until the launch has been queued."""
+def _result_rows(n: int, n_groups: int, n_vals: int, B: int, device,
+                 rows=None):
+    """(nb, partials, results (B, row)): B x nb rows (B x `rows(nb)`
+    where given) of G x A + G + 1 int32 words padded to a multiple of 4
+    (`csrc/filter_agg.cuh`), and B more such rows for the results.  Small
+    partials and the results are one allocation, the results its last B
+    rows, so a result keeps them alive; larger partials are an allocation
+    of their own, which the caller holds until the launch has been
+    queued."""
     nb = _agg_blocks(n, n_groups, n_vals)
     row = (n_groups * n_vals + n_groups + 1 + 3) // 4 * 4
-    part = B * nb * row
+    part = B * (nb if rows is None else rows(nb)) * row
     if part <= SHARED_ALLOC_WORDS:
         ws = torch.empty(part + B * row, dtype=torch.int32, device=device)
         res = ws[part:]
@@ -406,31 +472,73 @@ def _selective_lib(cols, scalars, pred_fn, value_fns, gidx_fn, n_groups):
 
 
 def selective_batch_source(cols: dict, kinds, pred_fn, value_fns: list,
-                           gidx_fn, n_groups: int) -> tuple[str, str]:
+                           gidx_fn, n_groups: int,
+                           staged=()) -> tuple[str, str]:
     """(library name, generated source) of the batched selective
-    pipeline at capacity 0; `cols` are one binding's views."""
+    pipeline at capacity 0; `cols` are one binding's views, `staged` the
+    columns it stages (`staged_columns` of the batched operands)."""
     em = codegen.emitter(cols, pred_fn.param_names, list(kinds))
     radix = gidx_fn.radix if gidx_fn is not None else []
     return "selective_agg_batched", codegen.selective_agg_batch_source(
-        pred_fn.expr, [f.expr for f in value_fns], radix, n_groups, em)
+        pred_fn.expr, [f.expr for f in value_fns], radix, n_groups, em,
+        staged)
 
 
 def _selective_batch_lib(cols, kinds, pred_fn, value_fns, gidx_fn,
-                         n_groups):
-    """The batched instance's library: keyed apart from the scalar one."""
-    key = ("batched",) + selective_key(cols, list(kinds), pred_fn,
-                                       value_fns, gidx_fn, n_groups)
+                         n_groups, staged=()):
+    """The batched instance's library: keyed apart from the scalar one,
+    and by the columns it stages."""
+    key = ("batched", tuple(staged)) + selective_key(
+        cols, list(kinds), pred_fn, value_fns, gidx_fn, n_groups)
     lib = _GEN_LIBS.get(key)
     if lib is None:
         lib = build.load(*selective_batch_source(cols, kinds, pred_fn,
                                                  value_fns, gidx_fn,
-                                                 n_groups))
+                                                 n_groups, staged))
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_selective_agg_batched.argtypes = [
-            vp, vp, vp, ll, vp, ll, i, ll, i, i, vp, vp, ll, vp, vp]
-        lib.repro_selective_agg_batched.restype = ctypes.c_int
+            vp, vp, vp, ll, vp, ll, i, i, ll, i, i, vp, vp, ll, vp, vp]
+        lib.repro_selective_agg_batched_rows.argtypes = [i, vp]
+        lib.repro_selective_agg_batched_info.argtypes = [i, i, vp]
+        for fn in (lib.repro_selective_agg_batched,
+                   lib.repro_selective_agg_batched_rows,
+                   lib.repro_selective_agg_batched_info):
+            fn.restype = ctypes.c_int
         _GEN_LIBS[key] = lib
     return lib
+
+
+def selective_batched_info(cols: dict, fp, ip, kinds, pred_fn,
+                           value_fns: list, gidx_fn, n_groups: int) -> dict:
+    """What the staged instance of a batched call (its operands as
+    `selective_filter_agg_batched` takes them, on the card; one chunk of
+    value columns) takes: the cluster size at these bindings, the
+    clusters resident at once on this card
+    (`cudaOccupancyMaxActiveClusters`), the ring's shared memory and
+    stages, the staged columns."""
+    B = batch_size(*[(t, 1) for t in cols.values()], (fp, 1), (ip, 1))
+    views = {k: v[0] if v.ndim == 2 else v for k, v in cols.items()}
+    staged = staged_columns(cols, n_groups, len(value_fns))
+    lib = _selective_batch_lib(views, kinds, pred_fn, value_fns, gidx_fn,
+                               n_groups, staged)
+    C, padded = cluster_shape(B)
+    out = (ctypes.c_int * 5)()
+    build.check(lib.repro_selective_agg_batched_info(B, C, out),
+                "selective_filter_agg_batched info")
+    return {"cluster": C, "warps": out[4], "padded_bindings": padded,
+            "active_clusters": out[0], "stage_smem_bytes": out[1],
+            "stages": out[2], "staged": list(staged)}
+
+
+def _staged_rows(lib):
+    """The workspace rows a binding of the batched selective launch
+    needs, as a function of nb (`agg_staged_rows`)."""
+    def rows(nb: int) -> int:
+        out = ctypes.c_int()
+        build.check(lib.repro_selective_agg_batched_rows(
+            nb, ctypes.byref(out)), "selective_filter_agg_batched rows")
+        return out.value
+    return rows
 
 
 def _selective_cuda(cols: dict, scalars: list, pred_fn, value_fns: list,
@@ -489,16 +597,20 @@ def _selective_batched_cuda(cols: dict, fp, ip, kinds, pred_fn,
     k = len(ptrs)
     col_ptrs = (ctypes.c_void_p * k)(*ptrs)
     col_strides = (ctypes.c_longlong * k)(*strides)
+    C, _padded = cluster_shape(B)
     rows, results = [], []
     for start, stop in chunks:
         fns = value_fns[start:stop]
+        staged = staged_columns(cols, n_groups, len(fns))
         lib = _selective_batch_lib(views, kinds, pred_fn, fns, gidx_fn,
-                                   n_groups)
-        nb, ws, res = _result_rows(n, n_groups, len(fns), B, dev)
+                                   n_groups, staged)
+        nb, ws, res = _result_rows(n, n_groups, len(fns), B, dev,
+                                   _staged_rows(lib))
         build.check(lib.repro_selective_agg_batched(
             col_ptrs, col_strides, build.ptr(fp), fps, build.ptr(ip), ips, B,
-            n, n_groups, nb, build.ptr(ws), res.data_ptr(), res.stride(0),
+            C, n, n_groups, nb, build.ptr(ws), res.data_ptr(), res.stride(0),
             build.ptr(ticket), stream), "selective_filter_agg_batched")
+        build.bump(staging, "staged" if staged else "unstaged")
         rows.append(res)
         results.append(agg_unpack(res, n_groups, len(fns)))
     build.bump(launches, "selective_filter_agg_batched", len(chunks))

@@ -424,7 +424,7 @@ def test_batched_sources_read_bindings_apart():
     em = codegen.emitter({k: T(_columns(8, 1)[k]) for k in sorted(names)},
                          pnames, ["float", "int"])
     src = codegen.selective_agg_batch_source(pe, vals, [("k0", 3, 1)], 3, em)
-    assert "repro::launch_agg_batch<Batch, 3, 3>(" in src
+    assert "repro::launch_agg_staged<Batch, Stage, 3, 3>(" in src
     # the scalar instance is what it was
     scalar = codegen.compact_pred_source(pe, em)
     assert "struct Batch" not in scalar and "compact_into(s, n, ws" in scalar
