@@ -20,7 +20,7 @@ median of `--reps` x 10 calls), `device_ms`, `kernels_per_call` and
 unsynchronised calls), the bytes bound as phase 4c counts it and, for
 `compact_batched`, `torch.nonzero` of the same masks timed in the same
 process (`library_ms`).  A tree whose wrapper reports it adds the staged
-instance's clusters, ring and staged columns.  The card's name and
+instance's clusters, ring and staged columns, or the route a call took.  The card's name and
 power limit come first.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -101,6 +101,13 @@ def main() -> int:
         if name == "selective_filter_agg_batched" and hasattr(
                 kf, "selective_batched_info"):
             row["staging"] = kf.selective_batched_info(*wa)
+        if name == "filter_agg_batched" and hasattr(
+                kf, "filter_agg_batched_info"):
+            row["staging"] = kf.filter_agg_batched_info(*wa)
+        kc = cs.kmod("compact")
+        if name == "compact_pred_batched" and hasattr(kc, "shared_tile"):
+            row["staging"] = {"route": "staged" if kc.shared_tile(
+                wa[0], wa[4]) else "unstaged"}
         print(json.dumps(row), flush=True)
         del lib, got, wa
     return 0

@@ -99,7 +99,10 @@ result line):
      `run_many`, one execution each, launching exactly
      `LAUNCHES_SF1_PARAM[q]` (not 64 times it), every batched instance
      launched, q1's and q6's selective launch on the staged path (the
-     wrapper's `filter_agg.staging`), the pass's peak device memory; every slot against `run`
+     wrapper's `filter_agg.staging`), q14's and q19's aggregations on the
+     staged register regime (`filter_agg.filter_agg_staging`) and q12's
+     compaction on the shared-tile scan (`compact.staging`), the pass's
+     peak device memory; every slot against `run`
      and the CPU; at 1, 2, 3, 4, 16 and 64 bindings the executions
      `run_many` takes (one scalar walk a binding below
      `compile.BATCH_MIN`, else passes), then `execute_many`, the entry's
@@ -973,7 +976,10 @@ BATCHED = {
 # the batched pass's launches, by the scalar kernel they count against in
 # LAUNCHES_SF1_PARAM
 BATCHED_OF = {name: spec[4] for name, spec in BATCHED.items()}
-# memsets beside the one kernel of a batched call
+# memsets beside the one kernel of a batched call (the compactions' 2-D
+# memset of every binding's head: the shared-tile scan of
+# `compact_pred_batched` clears the heads only, its pad shares the idx
+# past each count, but it is still one memset)
 BATCHED_MEMSETS = {"compact_batched": 1, "compact_pred_batched": 1,
                    "filter_agg_batched": 0, "selective_filter_agg_batched": 0}
 BATCH_SIZES = (1, 7, 64)         # phase 4c's bindings a call
@@ -981,8 +987,16 @@ BATCH_TIMED = 64                 # and the timed one
 RUN_MANY_SIZES = (1, 2, 3, 4, 16, 64)  # phase 7 (b)'s bindings a call
 # the plans whose 64-binding pass must take the staged selective kernel
 STAGED_QUERIES = ("q1", "q6")
+# the plans whose 64-binding pass must take the route that reads the
+# bindings' shared columns once: (kernel module, its route counter, the
+# batched instance) of each
+SHARED_COLUMN_QUERIES = {
+    "q12": ("compact", "staging", "compact_pred_batched"),
+    "q14": ("filter_agg", "filter_agg_staging", "filter_agg_batched"),
+    "q19": ("filter_agg", "filter_agg_staging", "filter_agg_batched")}
 # the redesigned batched kernels, whose ptxas lines phase 3 logs
-REDESIGNED = ("compact_batched_kernel", "agg_staged_kernel")
+REDESIGNED = ("compact_batched_kernel", "agg_staged_kernel",
+              "compact_tile_kernel")
 
 
 def batched_records(db):
@@ -1242,6 +1256,13 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
                     c["staging"] = m.selective_batched_info(*wa)
                     log(f"{name} {q}: staged instance "
                         + json.dumps(c["staging"]))
+                elif name == "filter_agg_batched":
+                    c["staging"] = m.filter_agg_batched_info(*wa)
+                    log(f"{name} {q}: " + json.dumps(c["staging"]))
+                elif name == "compact_pred_batched":
+                    c["staging"] = {"route": "staged" if m.shared_tile(
+                        wa[0], wa[4]) else "unstaged"}
+                    log(f"{name} {q}: " + json.dumps(c["staging"]))
                 log(f"{name} {q} at B={B} x {n} rows: {c['ms']} ms "
                     f"({c['ms'] / B} a binding), device {c['device_ms']} "
                     f"ms, host {c['host_ms']} ms, bound "
@@ -1886,7 +1907,9 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
     for d, k in bcounters.values():
         d[k] = 0
     staging = kmod("filter_agg").staging
-    staged_passes = {}
+    routes = {name: getattr(kmod(mod), counter) for mod, counter, name
+              in SHARED_COLUMN_QUERIES.values()}
+    staged_passes, route_passes = {}, {}
     for q in shapes:
         cq, _rt = cache.get(plan[q](), S, binds[q]["default"])
         rts = [{k: b[k] for k in cq.param_spec}
@@ -1894,13 +1917,24 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
         before, bbefore = snapshot(), {n: d[k] for n, (d, k)
                                        in bcounters.items()}
         st0 = dict(staging)
+        r0 = {name: dict(c) for name, c in routes.items()}
         e0, o0 = cq.n_executions, cq.n_overflows
         passes[q] = cq.run_many([rts[i % 2] for i in range(big)])
         staged_passes[q] = {k: staging[k] - st0[k] for k in staging}
+        route_passes[q] = {name: {k: c[k] - r0[name][k] for k in c}
+                           for name, c in routes.items()}
         if cuda and q in STAGED_QUERIES:
             check(staged_passes[q] == {"staged": 1, "unstaged": 0},
                   f"run_many {q} x{big}: the selective kernel's launches "
                   f"by path {staged_passes[q]}, not one staged")
+        if cuda and q in SHARED_COLUMN_QUERIES:
+            name = SHARED_COLUMN_QUERIES[q][2]
+            d, k = bcounters[name]
+            got_r = route_passes[q][name]
+            check(got_r["unstaged"] == 0
+                  and got_r["staged"] == d[k] - bbefore[name] > 0,
+                  f"run_many {q} x{big}: {name}'s launches by route "
+                  f"{got_r} of {d[k] - bbefore[name]}, not all staged")
         got = launched(before)
         for name, (d, k) in bcounters.items():
             if d[k] > bbefore[name]:
@@ -1919,7 +1953,11 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
     log(f"batched pass launches: {json.dumps(batched_launched)}")
     log("batched pass, selective launches by path (filter_agg.staging): "
         + json.dumps(staged_passes))
+    log("batched pass, launches by route of filter_agg_batched "
+        "(filter_agg.filter_agg_staging) and compact_pred_batched "
+        "(compact.staging): " + json.dumps(route_passes))
     report["staged_passes"] = staged_passes
+    report["route_passes"] = route_passes
     if cuda:
         report["batched_pass_peak_bytes"] = torch.cuda.max_memory_allocated()
         log(f"batched pass ({big} bindings of each plan): peak device "
@@ -3560,7 +3598,7 @@ def main() -> int:
             "rows": c["n"],
             "bindings": c["B"], "bytes": c["bytes"],
             "ops": c.get("ops"), "issue_floor_ms": c.get("issue_floor_ms"),
-            "per_query": c.get("per_query"),
+            "per_query": c.get("per_query"), "staging": c.get("staging"),
             "device_events_lost": c.get("device_events_lost"),
             "path": f"engine, batched pass ({c['query']}'s call)"})
     log(json.dumps({"kernels": rows}))

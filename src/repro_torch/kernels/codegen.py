@@ -30,7 +30,12 @@ column pointer moved by its binding stride (0 for a column every binding
 shares) and each parameter read from a device vector at the binding's
 index.  A batched instance is a library of its own.  The batched
 aggregation adds `struct Stage` (`stage_source`), which reads the
-columns every binding shares from a stage of shared memory.
+columns every binding shares from a stage of shared memory.  The batched
+compaction adds `struct Tile` (`tile_source`): the predicate split into
+the top-level conjuncts that read no parameter, evaluated once a row for
+every binding, and those that do, evaluated a binding at a time over a
+shared-memory copy of the columns they read; the staged program
+specialises away what the bindings share.
 
 A column may be a strided view (under the row layout, a column of a
 record matrix): its element stride is baked into the load as a constant,
@@ -40,6 +45,7 @@ reads `c<k>[i * stride]` straight from the records.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -126,17 +132,27 @@ class Emitter:
         self.used.add(k)
         return f"x{k}", self.col_types[name]
 
-    def loads(self, staged=None) -> list[str]:
+    def loads(self, staged=None, tile=None) -> list[str]:
         """Statements loading every column emitted since the last call,
         each once, ahead of the expression: it then reads registers only,
         so no `&&`, `||` or `?:` puts a load behind a branch, and a kernel
         that evaluates several rows has all their loads in flight.  A
         column in `staged` (indices; a `Stage` method) is read from the
-        quad's registers, `q<k>[r]`, the others from device memory."""
-        out = [f"    const {self.col_types[c]} x{k} = "
-               + (f"q{k}[r];" if staged is not None and k in staged
-                  else f"c{k}[{self._row(c)}];")
-               for k, c in enumerate(self.cols) if k in self.used]
+        quad's registers, `q<k>[r]`, one in `tile` (index -> byte offset;
+        a `Tile` method) from the tile's shared-memory copy at row r, the
+        others from device memory."""
+        out = []
+        for k, c in enumerate(self.cols):
+            if k not in self.used:
+                continue
+            ty = self.col_types[c]
+            if staged is not None and k in staged:
+                at = f"q{k}[r]"
+            elif tile is not None and k in tile:
+                at = f"reinterpret_cast<const {ty}*>(tile + {tile[k]})[r]"
+            else:
+                at = f"c{k}[{self._row(c)}]"
+            out.append(f"    const {ty} x{k} = {at};")
         self.used.clear()
         return out
 
@@ -483,14 +499,112 @@ def compact_pred_source(pred, em: Emitter) -> str:
         "}", ""])
 
 
+# rows of the batched predicate compaction's tile, which its shared-memory
+# copy holds (csrc/compact.cuh: kCompactRows)
+TILE_ROWS = 4096
+
+
+def conjuncts(e) -> list:
+    """The top-level conjuncts of `e`, in order (`e` itself where it is no
+    conjunction)."""
+    if isinstance(e, E.And):
+        return conjuncts(e.lhs) + conjuncts(e.rhs)
+    return [e]
+
+
+def reads_param(e) -> bool:
+    """Whether any node of `e` is a Param."""
+    if isinstance(e, E.Param):
+        return True
+    if dataclasses.is_dataclass(e):
+        return any(reads_param(getattr(e, f.name))
+                   for f in dataclasses.fields(e))
+    if isinstance(e, (tuple, list)):
+        return any(reads_param(x) for x in e)
+    return False
+
+
+def split_predicate(pred) -> tuple:
+    """(free, bound): the conjunction of the predicate's top-level
+    conjuncts that read no parameter, and of those that do, each in
+    order, None for an empty one (true).  free AND bound is the predicate
+    on every row: a conjunct is the same C++ expression in either place.
+    A predicate that is no conjunction is wholly one or the other."""
+    free = [c for c in conjuncts(pred) if not reads_param(c)]
+    bound = [c for c in conjuncts(pred) if reads_param(c)]
+    fold = (lambda cs: None if not cs else
+            functools.reduce(lambda a, b: E.And(a, b), cs))
+    return fold(free), fold(bound)
+
+
+def tile_layout(em: Emitter, bound) -> dict[int, int]:
+    """Column index -> byte offset in the tile's shared-memory copy, for
+    each column the bound conjuncts read (4-byte columns first, so every
+    array stays aligned; TILE_ROWS rows each)."""
+    if bound is None:
+        return {}
+    names = sorted(E.expr_columns(bound),
+                   key=lambda c: (-_ELEM_BYTES[em.col_types[c]],
+                                  em.cols.index(c)))
+    out, off = {}, 0
+    for c in names:
+        out[em.cols.index(c)] = off
+        off += _ELEM_BYTES[em.col_types[c]] * TILE_ROWS
+    return out
+
+
+def tile_row_bytes(em: Emitter, pred) -> int:
+    """Shared-memory bytes a row of the tile's copy takes."""
+    return sum(_ELEM_BYTES[em.col_types[em.cols[k]]]
+               for k in tile_layout(em, split_predicate(pred)[1]))
+
+
+def tile_source(em: Emitter, pred) -> str:
+    """`struct Tile : Src`: the predicate split for the batched
+    compaction over shared columns (`csrc/compact.cuh`'s
+    `compact_tile_kernel`): `free_pred(i)`, the conjuncts that read no
+    parameter, from device memory, once a row for every binding;
+    `stage(tile, i, r)`, which copies row i of every column the other
+    conjuncts read to row r of the tile's shared-memory copy; and
+    `bound_pred(tile, r)`, those conjuncts from that copy and the
+    binding's parameters."""
+    free, bound = split_predicate(pred)
+    layout = tile_layout(em, bound)
+    em.used.clear()
+    fcode = em.emit(free)[0] if free is not None else "true"
+    fbody = [*em.loads(), f"    return {fcode};"]
+    bcode = em.emit(bound)[0] if bound is not None else "true"
+    bbody = [*em.loads(tile=layout), f"    return {bcode};"]
+    stage = [f"    reinterpret_cast<{em.col_types[em.cols[k]]}*>(tile + {off})"
+             f"[r] = c{k}[{em._row(em.cols[k])}];"
+             for k, off in layout.items()]
+    return "\n".join([
+        "struct Tile : Src {",
+        f"  static constexpr int kBytes = {tile_row_bytes(em, pred)};"
+        "  // a row's copy",
+        "  __device__ __forceinline__ bool free_pred(long long i) const {",
+        *fbody, "  }",
+        "  __device__ __forceinline__ void stage(unsigned char* tile,"
+        " long long i, int r) const {", *stage, "  }",
+        "  __device__ __forceinline__ bool bound_pred("
+        "const unsigned char* tile, int r) const {", *bbody, "  }", "};"])
+
+
 def compact_pred_batch_source(pred, em: Emitter) -> str:
     """A library exporting `repro_compact_pred_batched`: the look-back
     scan over B bindings of the predicate (`csrc/compact.cuh`'s binding
     axis), one 2-D memset and one launch; binding b's workspace row is
-    `repro_compact_row_words` words past binding a's."""
+    `repro_compact_row_words` words past binding a's.  And
+    `repro_compact_pred_batched_tile`, the same where every column is
+    shared (`compact_tile_kernel` over `tile_source`'s split predicate:
+    one tile for every binding), rows `repro_compact_tile_row_words`
+    words apart."""
     return "\n".join([
         _HEADER + '#include "compact.cuh"', "",
         "namespace {", functor_source(em, pred), *em.batch_struct(),
+        tile_source(em, pred),
+        f"static_assert({TILE_ROWS} == repro::kCompactRows, "
+        '"codegen.TILE_ROWS");',
         "}  // namespace", "",
         f'extern "C" int repro_compact_pred_batched({_BATCH_ARGS},',
         "    long long n, int* ws, long long ws_words, int cap,"
@@ -499,6 +613,16 @@ def compact_pred_batch_source(pred, em: Emitter) -> str:
         "  Batch bt{};", *em.fill_batch("bt"),
         "  return repro::compact_batch_into(bt, B, n, ws, ws_words, cap,",
         "                                   translate != 0, stream);",
+        "}", "",
+        f'extern "C" int repro_compact_pred_batched_tile({_BATCH_ARGS},',
+        "    long long n, int* ws, long long ws_words, int cap,"
+        " int translate,",
+        "    cudaStream_t stream) {",
+        "  Batch bt{};", *em.fill_batch("bt"),
+        "  return repro::compact_tile_into<Batch, Tile>(bt, B, n, ws,"
+        " ws_words, cap,",
+        "                                               translate != 0,"
+        " stream);",
         "}", ""])
 
 

@@ -14,9 +14,11 @@ engine's bind-many pass) take B bindings at once, each operand either
 shared by every binding (one binding's shape) or batched (B in front),
 and return every output with B in front: slot b is the scalar form's
 output on binding b's operands.  On the card they are one launch for B
-bindings (`csrc/compact.cuh`: the predicate's through the look-back
-scan's binding axis, the masks' through a wide-tile batched scan of
-their own); their plain versions loop over the bindings through the
+bindings (`csrc/compact.cuh`: the masks' through a wide-tile batched
+scan of their own; the predicate's, where every column is shared,
+through a scan whose tile serves every binding, the conjuncts that read
+no parameter evaluated once a row, else through the look-back scan's
+binding axis); their plain versions loop over the bindings through the
 scalar plain versions.  A predicate's
 parameters reach a batched form as `param_vectors` makes them: float
 parameters as a float64 (B, nf) or shared (nf,) tensor, the others as
@@ -42,6 +44,11 @@ from repro_torch.kernels import build, codegen
 
 launches = {"compact": 0, "compact_pred": 0, "compact_batched": 0,
             "compact_pred_batched": 0}
+# the launches of `compact_pred_batched` by route: "staged" (every column
+# shared: one tile for every binding, the columns read once a tile,
+# `shared_tile`) or "unstaged" (a column differs by binding: a block a
+# binding and tile)
+staging = {"staged": 0, "unstaged": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -188,11 +195,15 @@ def _lib():
                    lib.repro_compact_batched_tile_rows, lib.repro_compact,
                    lib.repro_compact_batched):
             fn.restype = ctypes.c_int
+        lib.repro_compact_tile_row_words.argtypes = [ll, i, i]
+        lib.repro_compact_tile_row_words.restype = ll
         if (lib.repro_compact_tile_rows() != TILE_ROWS
                 or lib.repro_compact_batched_tile_rows() != BATCH_TILE_ROWS
                 or lib.repro_compact_batched_row_words(
                     BATCH_TILE_ROWS + 1, 5, 1)
-                != batched_row_words(BATCH_TILE_ROWS + 1, 5, True)):
+                != batched_row_words(BATCH_TILE_ROWS + 1, 5, True)
+                or lib.repro_compact_tile_row_words(TILE_ROWS + 1, 5, 1)
+                != tile_row_words(TILE_ROWS + 1, 5, True)):
             raise RuntimeError("compact.cuh and compact.py disagree on the "
                                "tiles or the batched workspace")
         _STATIC.append(lib)
@@ -261,6 +272,46 @@ def batched_row_words(n: int, capacity: int, translate: bool) -> int:
     return (batched_head(n) + capacity + (n if translate else 0) + 3) \
         // 4 * 4
 
+
+# the predicate's shared-tile layout (csrc/compact.cuh, compact_tile_kernel):
+# a row a binding, [status 2 per tile][ticket][padding][total][idx]
+# [slot_of], its tiles the scalar TILE_ROWS, the head a multiple of 4 words
+
+def tile_head(n: int) -> int:
+    """int32 words before idx in a shared-tile row."""
+    return (2 * (-(-n // TILE_ROWS)) + 2 + 3) // 4 * 4
+
+
+def tile_row_words(n: int, capacity: int, translate: bool) -> int:
+    """int32 words of one binding's shared-tile row, a quad multiple."""
+    return (tile_head(n) + capacity + (n if translate else 0) + 3) // 4 * 4
+
+
+# shared memory the tile's copy of the bound conjuncts' columns may take
+# (TILE_ROWS rows of them), within a block's 227 KB beside the kernel's own
+TILE_SMEM_MAX = 200 * 1024
+# a predicate's tile bytes a row, by its expression's key and column types
+# (the split walks the tree: a call's host cost is kept off it)
+_TILE_ROW_BYTES: dict[tuple, int] = {}
+
+
+def shared_tile(cols: dict, pred_fn) -> bool:
+    """Whether a batched predicate compaction takes the shared-tile scan:
+    every column is one binding's shape (every binding shares it), and
+    the columns its parameterised conjuncts read fit the tile's copy in
+    shared memory.  A column that differs by binding takes the look-back
+    scan's binding axis, a block a binding and tile."""
+    if any(t.ndim != 1 for t in cols.values()):
+        return False
+    types = codegen.column_types(cols)
+    key = (codegen.expr_key(pred_fn.expr), tuple(types.items()))
+    row = _TILE_ROW_BYTES.get(key)
+    if row is None:
+        if len(_TILE_ROW_BYTES) >= 4096:
+            _TILE_ROW_BYTES.clear()
+        row = _TILE_ROW_BYTES[key] = codegen.tile_row_bytes(
+            codegen.Emitter(types, {}), pred_fn.expr)
+    return row * codegen.TILE_ROWS <= TILE_SMEM_MAX
 
 
 def rank_mask_cuda(mask, capacity: int, translate: bool):
@@ -364,9 +415,10 @@ def _pred_batch_lib(cols: dict, kinds, pred_fn):
     if lib is None:
         lib = build.load(*pred_batch_source(cols, kinds, pred_fn))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.repro_compact_pred_batched.argtypes = [
-            vp, vp, vp, ll, vp, ll, i, ll, vp, ll, i, i, vp]
-        lib.repro_compact_pred_batched.restype = ctypes.c_int
+        for fn in (lib.repro_compact_pred_batched,
+                   lib.repro_compact_pred_batched_tile):
+            fn.argtypes = [vp, vp, vp, ll, vp, ll, i, ll, vp, ll, i, i, vp]
+            fn.restype = ctypes.c_int
         _PRED_LIBS[key] = lib
     return lib
 
@@ -428,21 +480,30 @@ def _compact_pred_cuda(cols: dict, scalars: list, pred_fn, capacity: int,
 def _compact_pred_batched_cuda(cols: dict, fp, ip, kinds, pred_fn,
                                capacity: int, translate: bool):
     _check_capacity(capacity)
+    tiled = shared_tile(cols, pred_fn)
     B, views, ptrs, strides, (fp, fps), (ip, ips) = \
         batch_operands(cols, fp, ip)
     _check_batch(B)
-    n = next(iter(views.values())).shape[0]
+    first = next(iter(views.values()))
+    n = first.shape[0]
     lib = _pred_batch_lib(views, kinds, pred_fn)
-    ws = _batch_workspace(B, n, capacity, translate,
-                          next(iter(views.values())).device)
+    if tiled:
+        _lib()      # the static library's check of the tile layout
+        ws = torch.empty((B, tile_row_words(n, capacity, translate)),
+                         dtype=torch.int32, device=first.device)
+        launch, head = lib.repro_compact_pred_batched_tile, tile_head(n)
+    else:
+        ws = _batch_workspace(B, n, capacity, translate, first.device)
+        launch, head = lib.repro_compact_pred_batched, None
     k = len(ptrs)
-    build.check(lib.repro_compact_pred_batched(
+    build.check(launch(
         (ctypes.c_void_p * k)(*ptrs), (ctypes.c_longlong * k)(*strides),
         build.ptr(fp), fps, build.ptr(ip), ips, B, n, build.ptr(ws),
         ws.numel(), capacity, int(translate), build.stream_ptr(ws)),
         "compact_pred_batched")
+    build.bump(staging, "staged" if tiled else "unstaged")
     build.bump(launches, "compact_pred_batched")
-    return _packed_view(ws, n, capacity, translate)
+    return _packed_view(ws, n, capacity, translate, head)
 
 
 # ---------------------------------------------------------------------------

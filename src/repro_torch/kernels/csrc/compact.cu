@@ -18,6 +18,13 @@ long long repro_compact_row_words(long long n, int cap, int translate) {
   return repro::compact_row_words(n, cap, translate != 0);
 }
 
+// A binding's workspace row of the generated predicate's shared-tile
+// launch (`repro_compact_pred_batched_tile`, compact.cuh's
+// compact_tile_kernel).
+long long repro_compact_tile_row_words(long long n, int cap, int translate) {
+  return repro::tile_row_words(n, cap, translate != 0);
+}
+
 // `ws` holds `ws_words` int32 words in compact.cuh's layout; `translate`
 // adds slot_of.
 int repro_compact(const uint8_t* mask, long long n, int* ws,

@@ -45,8 +45,9 @@
 //
 // The binding axis (the engine's bind-many pass, torch.func.vmap over a
 // query's parameters; the reference vmaps its Pallas kernel into a batch
-// grid axis) of `compact_pred_batched` (the byte masks of
-// `compact_batched` have a kernel of their own, at the end of this
+// grid axis) of `compact_pred_batched` where a column differs by binding
+// (the byte masks of `compact_batched`, and the predicate over columns
+// every binding shares, have kernels of their own, at the end of this
 // file): blockIdx.y is the binding.  Each binding b has its own
 // workspace row of compact_row_words words (status, ticket, total, idx),
 // its own slot_of row, and reads its rows through `bind.at(b)`: a mask
@@ -402,6 +403,38 @@ __device__ __forceinline__ unsigned mask_bits32(const uint8_t* mask,
   return bits;
 }
 
+// A pad share `share` of a binding whose status words are `status`
+// (n_tiles tiles): the block (BLOCK threads) waits for the last tile's
+// inclusive prefix, the count, which a running block publishes, and
+// zeroes idx[lo, hi) of its kBatchPadWords words at or past the count with
+// 16-byte stores (idx is 16-byte aligned).  `s_count` is a shared word.
+template <int BLOCK>
+__device__ __forceinline__ void pad_share(const unsigned long long* status,
+                                          int n_tiles, int* idx, int cap,
+                                          long long share, int* s_count) {
+  if (threadIdx.x == 0) {
+    int count = 0;
+    if (n_tiles > 0) {
+      unsigned long long w;
+      while (((w = load_status(&status[n_tiles - 1])) >> 32) != 2)
+        __nanosleep(64);
+      count = (int)(unsigned)w;
+    }
+    *s_count = count;
+  }
+  __syncthreads();
+  long long lo = share * kBatchPadWords;
+  const long long hi = lo + kBatchPadWords < cap ? lo + kBatchPadWords : cap;
+  if (lo < *s_count) lo = *s_count;
+  long long a = (lo + 3) / 4 * 4;
+  if (a > hi) a = hi;
+  for (long long i = lo + threadIdx.x; i < a; i += BLOCK) idx[i] = 0;
+  for (long long q = a / 4 + threadIdx.x; q < hi / 4; q += BLOCK)
+    reinterpret_cast<int4*>(idx)[q] = make_int4(0, 0, 0, 0);
+  const long long t = hi / 4 * 4 > a ? hi / 4 * 4 : a;
+  for (long long i = t + threadIdx.x; i < hi; i += BLOCK) idx[i] = 0;
+}
+
 // Binding blockIdx.y: mask `bind.at(b)`, workspace row b (`row` words
 // apart, head `head` words).  A block is a tile or, past the binding's
 // n_tiles tickets, a pad share.
@@ -424,27 +457,8 @@ compact_batched_kernel(Bind bind, long long n, int n_tiles, int* ws0,
   const int tile = s_tile;
 
   if (tile >= n_tiles) {            // a pad share: zeros at or past the count
-    if (threadIdx.x == 0) {
-      int count = 0;
-      if (n_tiles > 0) {
-        unsigned long long w;
-        while (((w = load_status(&status[n_tiles - 1])) >> 32) != 2)
-          __nanosleep(64);
-        count = (int)(unsigned)w;
-      }
-      s_offset = count;
-    }
-    __syncthreads();
-    long long lo = (long long)(tile - n_tiles) * kBatchPadWords;
-    const long long hi = lo + kBatchPadWords < cap ? lo + kBatchPadWords : cap;
-    if (lo < s_offset) lo = s_offset;
-    long long a = (lo + 3) / 4 * 4;   // idx is 16-byte aligned
-    if (a > hi) a = hi;
-    for (long long i = lo + threadIdx.x; i < a; i += kBatchBlock) idx[i] = 0;
-    for (long long q = a / 4 + threadIdx.x; q < hi / 4; q += kBatchBlock)
-      reinterpret_cast<int4*>(idx)[q] = make_int4(0, 0, 0, 0);
-    const long long t = hi / 4 * 4 > a ? hi / 4 * 4 : a;
-    for (long long i = t + threadIdx.x; i < hi; i += kBatchBlock) idx[i] = 0;
+    pad_share<kBatchBlock>(status, n_tiles, idx, cap, tile - n_tiles,
+                           &s_offset);
     return;
   }
 
@@ -540,6 +554,260 @@ int compact_batched_into(const Bind& bind, int B, long long n, int* ws,
       <<<dim3((unsigned)(tiles + batch_pad_blocks(cap)), (unsigned)B),
          kBatchBlock, 0, stream>>>(bind, n, (int)tiles, ws, row, head, cap,
                                    translate ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// -- the batched predicate compaction: one tile for every binding ----------
+//
+// `compact_pred_batched` (the vmapped `compact_pred`) where every column
+// the predicate reads is one that all bindings share (the engine's q12:
+// four lineitem columns, the receipt-date window a binding; the wrapper
+// decides, compact.shared_tile): the look-back scan above, its 4,096-row
+// tile and its status words a binding, but one tile serves every binding,
+// so the shared columns enter the SM once a tile, not once a binding:
+//
+//   * the launch has one ticket (binding 0's ticket word); a block draws a
+//     tile and evaluates once a row the predicate's conjuncts that read no
+//     parameter (codegen.py splits the top-level conjunction: the
+//     generated `Tile`'s `free_pred`), every load of a thread's 16 rows in
+//     flight at once, into a ballot word a 32-row group;
+//   * it compacts the rows where they hold (the free rows, in row order: a
+//     scan of the groups' counts, then popc ranks) into shared memory:
+//     each one's row in the tile and the columns the other conjuncts read
+//     (`stage`), so no binding looks at a row that no binding can keep;
+//   * warp w then takes bindings w, w + 8, ...: for each, its conjuncts
+//     (`bound_pred`, over the compacted copy and the binding's parameters)
+//     ballotted over the free rows 32 at a time, lane l keeping free groups
+//     4l .. 4l + 3; a warp scan of the counts; the look-back over that
+//     binding's status words, which waits only on tiles drawn before, whose
+//     blocks run, so the scan cannot deadlock; then the ids of each group
+//     that keeps a row stored at offset + rank, in row order since the
+//     compaction kept it, and with translate every row's slot_of from the
+//     group ballots, parked in shared memory;
+//   * after the tiles come the pad shares, B x batch_pad_blocks(cap)
+//     tickets, each zeroing a binding's idx at or past its count once its
+//     last tile has published it (pad_share), so the memset clears only
+//     every row's head and every idx word is written once.
+//
+// Workspace row of a binding (int32 words, rows tile_row_words apart,
+// each 16-byte aligned): [status 2 per tile][ticket][padding][total][idx
+// cap][slot_of n, with translate], the head a multiple of 4 words, so
+// [total, idx, slot_of] is the packed output.  Bound: bytes (the shared
+// columns once, every binding's idx and slot_of once).
+constexpr int kTileGroups = kCompactRows / kWarp;          // 32-row groups
+constexpr int kTileLaneGroups = kTileGroups / kWarp;       // a lane's groups
+// the kernel's static shared memory, at most (its arrays and a few words)
+constexpr size_t kTileStaticSmem =
+    2 * kTileGroups * 4 + kCompactRows * 2 +
+    2 * kCompactWarps * kTileGroups * 4 + 64;
+
+inline long long tile_head_words(long long n) {
+  return (2 * compact_tiles(n) + 2 + 3) / 4 * 4;
+}
+
+inline long long tile_row_words(long long n, int cap, bool translate) {
+  if (n < 0 || n >= INT_MAX || cap < 0) return -1;
+  return (tile_head_words(n) + cap + (translate ? n : 0) + 3) / 4 * 4;
+}
+
+template <class Bind, class Tile>
+__global__ void __launch_bounds__(kCompactBlock)
+compact_tile_kernel(Bind bind, int B, long long n, int n_tiles, int* ws0,
+                    long long row, long long head, int cap, int translate,
+                    int pads) {
+  using Src = bound_source_t<Bind>;
+  extern __shared__ __align__(16) unsigned char s_cols[];
+  __shared__ unsigned s_free[kTileGroups];      // a free bit a row
+  __shared__ int s_fpre[kTileGroups];           // free rows before group g
+  __shared__ unsigned short s_row[kCompactRows];  // the free rows in order
+  __shared__ unsigned s_bal[kCompactWarps][kTileGroups];  // with translate:
+  __shared__ int s_off[kCompactWarps][kTileGroups];       // a warp's binding
+  __shared__ int s_tile, s_count, s_nfree;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const unsigned lt = (1u << lane) - 1u;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ws0 + 2 * n_tiles, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  if (tile >= n_tiles) {            // a pad share of binding share / pads
+    const int share = tile - n_tiles;
+    int* ws = ws0 + (long long)(share / pads) * row;
+    pad_share<kCompactBlock>(reinterpret_cast<unsigned long long*>(ws),
+                             n_tiles, ws + head, cap, share % pads, &s_count);
+    return;
+  }
+
+  // the binding-free conjuncts once a row, as a ballot word a 32-row group
+  const long long base = (long long)tile * kCompactRows;
+  Tile t0;
+  static_cast<Src&>(t0) = bind.at(0);
+  bool f[kCompactItems];
+  if (base + kCompactRows <= n) {
+#pragma unroll
+    for (int k = 0; k < kCompactItems; ++k)
+      f[k] = t0.free_pred(base + k * kCompactBlock + threadIdx.x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCompactItems; ++k) {
+      const long long i = base + k * kCompactBlock + threadIdx.x;
+      f[k] = i < n && t0.free_pred(i);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCompactItems; ++k) {     // group 8k + warp
+    const unsigned w = __ballot_sync(0xffffffffu, f[k]);
+    if (lane == 0) s_free[k * kCompactWarps + warp] = w;
+  }
+  __syncthreads();
+  if (warp == 0) {                  // the groups' free rows before them
+    int c[kTileLaneGroups], lc = 0;
+#pragma unroll
+    for (int q = 0; q < kTileLaneGroups; ++q) {
+      c[q] = __popc(s_free[lane * kTileLaneGroups + q]);
+      lc += c[q];
+    }
+    int incl = lc;
+#pragma unroll
+    for (int o = 1; o < kWarp; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    int e = incl - lc;
+#pragma unroll
+    for (int q = 0; q < kTileLaneGroups; ++q) {
+      s_fpre[lane * kTileLaneGroups + q] = e;
+      e += c[q];
+    }
+    if (lane == kWarp - 1) s_nfree = incl;
+  }
+  __syncthreads();
+  // the free rows, compacted in row order: each one's row and the bound
+  // conjuncts' columns at its position
+#pragma unroll
+  for (int k = 0; k < kCompactItems; ++k) {
+    if (!f[k]) continue;
+    const int g = k * kCompactWarps + warp, r = k * kCompactBlock + threadIdx.x;
+    const int p = s_fpre[g] + __popc(s_free[g] & lt);
+    s_row[p] = (unsigned short)r;
+    t0.stage(s_cols, base + r, p);
+  }
+  __syncthreads();
+  const int nfree = s_nfree, ngroups = (nfree + kWarp - 1) / kWarp;
+
+  for (int b = warp; b < B; b += kCompactWarps) {
+    Tile tb;
+    static_cast<Src&>(tb) = bind.at(b);
+    // the binding's conjuncts over the free rows, 32 at a time; lane l
+    // keeps the ballots of free groups 4l .. 4l + 3
+    unsigned mine[kTileLaneGroups];
+#pragma unroll
+    for (int q = 0; q < kTileLaneGroups; ++q) mine[q] = 0;
+    for (int j = 0; j * kTileLaneGroups < ngroups; ++j) {
+#pragma unroll
+      for (int q = 0; q < kTileLaneGroups; ++q) {
+        const int c = j * kTileLaneGroups + q, p = c * kWarp + lane;
+        if (c >= ngroups) break;
+        const bool m = p < nfree && tb.bound_pred(s_cols, p);
+        const unsigned bal = __ballot_sync(0xffffffffu, m);
+        if (lane == j) mine[q] = bal;
+      }
+    }
+    int cnt[kTileLaneGroups], lc = 0;
+#pragma unroll
+    for (int q = 0; q < kTileLaneGroups; ++q) {
+      cnt[q] = __popc(mine[q]);
+      lc += cnt[q];
+    }
+    int incl = lc;
+#pragma unroll
+    for (int o = 1; o < kWarp; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int agg = __shfl_sync(0xffffffffu, incl, kWarp - 1);
+    int* ws = ws0 + (long long)b * row;
+    unsigned long long* status = reinterpret_cast<unsigned long long*>(ws);
+    int excl = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(&status[0], kTilePrefix | (unsigned)agg);
+    } else {
+      excl = look_back(status, tile, agg);
+    }
+    if (lane == 0 && tile == n_tiles - 1) ws[head - 1] = excl + agg;
+    if (agg == 0 && !translate) continue;
+
+    // the ids of each free group that keeps a row, in row order, a
+    // coalesced store of the warp
+    int off[kTileLaneGroups];
+    off[0] = excl + incl - lc;
+#pragma unroll
+    for (int q = 1; q < kTileLaneGroups; ++q) off[q] = off[q - 1] + cnt[q - 1];
+    int* idx = ws + head;
+#pragma unroll
+    for (int q = 0; q < kTileLaneGroups; ++q) {
+      for (unsigned live = __ballot_sync(0xffffffffu, mine[q] != 0); live;
+           live &= live - 1) {
+        const int j = __ffs(live) - 1;
+        const unsigned bal = __shfl_sync(0xffffffffu, mine[q], j);
+        const int pos = __shfl_sync(0xffffffffu, off[q], j) +
+                        __popc(bal & lt);
+        if (((bal >> lane) & 1u) != 0 && pos < cap)
+          idx[pos] = (int)(base +
+                           s_row[(j * kTileLaneGroups + q) * kWarp + lane]);
+      }
+    }
+    if (translate) {                // every row's rank, -1 where not kept
+#pragma unroll
+      for (int q = 0; q < kTileLaneGroups; ++q) {
+        s_bal[warp][lane * kTileLaneGroups + q] = mine[q];
+        s_off[warp][lane * kTileLaneGroups + q] = off[q];
+      }
+      __syncwarp();
+      int* slot_of = idx + cap;
+      for (int g = 0; g < kTileGroups; ++g) {
+        const long long i = base + g * kWarp + lane;
+        const unsigned fw = s_free[g];
+        int v = -1;
+        if (((fw >> lane) & 1u) != 0) {
+          const int p = s_fpre[g] + __popc(fw & lt), c = p / kWarp;
+          const unsigned bal = s_bal[warp][c], below = (1u << (p % kWarp)) - 1u;
+          if (((bal >> (p % kWarp)) & 1u) != 0)
+            v = s_off[warp][c] + __popc(bal & below);
+        }
+        if (i < n) slot_of[i] = v;
+      }
+      __syncwarp();                 // before the warp's next binding
+    }
+  }
+}
+
+// B bindings of a `Tile` over shared columns through `bind`, binding b's
+// workspace row b x tile_row_words words into `ws`: one 2-D memset of
+// every row's head and one launch of tiles + B x pad shares blocks, the
+// staged columns' Tile::kBytes a row in dynamic shared memory.
+template <class Bind, class Tile>
+int compact_tile_into(const Bind& bind, int B, long long n, int* ws,
+                      long long ws_words, int cap, bool translate,
+                      cudaStream_t stream) {
+  const long long row = tile_row_words(n, cap, translate);
+  if (row < 0 || cap < 1 || B < 1 || B > 65535 || ws_words < row * B)
+    return (int)cudaErrorInvalidValue;
+  const long long head = tile_head_words(n);
+  cudaError_t err = cudaMemset2DAsync(ws, 4 * (size_t)row, 0,
+                                      4 * (size_t)head, (size_t)B, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = compact_tiles(n), pads = batch_pad_blocks(cap);
+  const long long grid = tiles + (long long)B * pads;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Tile::kBytes * kCompactRows;
+  auto kernel = compact_tile_kernel<Bind, Tile>;
+  if (smem + kTileStaticSmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)grid, kCompactBlock, smem, stream>>>(
+      bind, B, n, (int)tiles, ws, row, head, cap, translate ? 1 : 0,
+      (int)pads);
   return (int)cudaGetLastError();
 }
 

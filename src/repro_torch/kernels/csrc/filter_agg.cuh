@@ -78,8 +78,12 @@
 // launch's block partition and fold order: in the register regime binding
 // b's sums are the scalar launch's on b's operands bit for bit.  B
 // bindings are one launch (two in the shared-memory regime).  That is
-// `filter_agg_batched`'s layout; the batched selective aggregation's
-// register regime has a kernel of its own (agg_staged_kernel, below).
+// `filter_agg_batched`'s layout where its group index or a value column
+// is itself batched; its register regime over a shared group index and
+// shared value columns (every engine call), and the batched selective
+// aggregation's register regime, run a kernel of their own
+// (agg_staged_kernel, below), which reads the columns the bindings share
+// once a cluster, not once a binding.
 #pragma once
 
 #include <atomic>
@@ -633,11 +637,22 @@ int launch_reg(Bind bind, int B, long long n, int G, int A, int* ws, int nb,
 // registers) and `pred_q`, `group_q`, `values_q`, which read those
 // registers (row i is slot r of the quad) and device memory for the rest.
 //
+// A Stage may also fetch a column of its own binding (`kFetch`,
+// `fetch(step, row)`, `load_fetched(step)`): the precomputed form's
+// ColumnStage does, for its batched mask.  The compute warp issues a
+// slot's loads of it from device memory before it waits for the slot, so
+// they are in flight while the ring fills (a bulk copy a binding and step
+// into the stage was measured 2.3 times slower: 128 small copies a slot
+// held the producer warp).
+//
 // Workspace of a binding (9 x parts rows of agg_row_words words, the
 // binding's at b x 9 x parts rows): the warp rows of unit u at row u, the
 // partial rows at 8 parts + x.  Bound on the card: the operands' bytes
 // once, or the register step's G x (A + 1) predicated adds a row and
-// binding (q1: G = 6, A = 7).
+// binding (q1: G = 6, A = 7).  The instance's (GM, AM) may exceed (G, A)
+// (the precomputed form instantiates a few): a thread's sums of groups
+// and values past (G, A) stay 0 and are never written, so the sums that
+// are written are those of the (G, A) instance bit for bit.
 constexpr int kStageRows = 4 * kWarp;         // a warp's rows of a step
 constexpr int kAggWarps = kAggBlock / kWarp;  // warps of a scalar block
 constexpr int kAggMaxCluster = 8;             // the portable cluster size
@@ -659,6 +674,80 @@ __host__ __device__ constexpr int agg_stages(int bytes) {
 __host__ __device__ constexpr int staged_warps(int B) {
   return B <= 8 ? 8 : 16;
 }
+
+// Whether a Stage fetches a column of its own binding (kFetch).
+template <class S, class = void>
+struct stage_fetches : std::false_type {};
+template <class S>
+struct stage_fetches<S, std::void_t<decltype(S::kFetch)>> : std::true_type {};
+
+// The precomputed form's Stage (`filter_agg_batched` in the staged
+// register regime): the group index and the value columns are staged,
+// each one that every binding shares, contiguous and 16-byte aligned (the
+// wrapper decides: filter_agg.staged_operands); the mask, which is
+// batched, is fetched by each binding's warp.  A (B, n) mask of odd n
+// (5,999,771 rows at SF 1) puts every other binding's rows at an odd
+// address, so a lane reads its quad as the one or two aligned words that
+// hold it (each holds a byte of the quad, so neither leaves the mask's
+// allocation) and funnels them by the quad's offset.  AM value columns at
+// most (the instance's register step), n_vals of them staged.
+template <int MAXA, int AM>
+struct ColumnStage : ColumnSource<MAXA> {
+  static constexpr int kCols = 1 + AM;
+  static constexpr int kBytes = kCols * 4 * kStageRows;
+  static constexpr bool kFetch = true;
+  int qg[4];
+  float qv[AM][4];
+  bool qm[4];
+  unsigned mw[kStepsPerSlot][2];   // a slot's mask words, a quad a step
+
+  template <class F>
+  __device__ __forceinline__ void each(F&& f) const {
+    f(reinterpret_cast<const unsigned char*>(this->gidx), 4, 0);
+#pragma unroll
+    for (int k = 0; k < AM; ++k)
+      if (k < this->n_vals)
+        f(reinterpret_cast<const unsigned char*>(this->cols[k]), 4,
+          (1 + k) * 4 * kStageRows);
+  }
+  __device__ __forceinline__ void load(const unsigned char* stage,
+                                       int quad) {
+    const int4 g = reinterpret_cast<const int4*>(stage)[quad];
+    qg[0] = g.x; qg[1] = g.y; qg[2] = g.z; qg[3] = g.w;
+#pragma unroll
+    for (int k = 0; k < AM; ++k) {
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < this->n_vals)
+        w = reinterpret_cast<const float4*>(stage +
+                                            (1 + k) * 4 * kStageRows)[quad];
+      qv[k][0] = w.x; qv[k][1] = w.y; qv[k][2] = w.z; qv[k][3] = w.w;
+    }
+  }
+  __device__ __forceinline__ void fetch(int ts, long long i) {
+    const uint8_t* a = this->mask + i;
+    const unsigned s = (unsigned)((size_t)a & 3);
+    const unsigned* w = reinterpret_cast<const unsigned*>(a - s);
+    mw[ts][0] = __ldg(w);
+    mw[ts][1] = s != 0 ? __ldg(w + 1) : 0u;
+  }
+  __device__ __forceinline__ void load_fetched(int ts) {
+    const unsigned s = (unsigned)((size_t)this->mask & 3);
+    const unsigned v = __funnelshift_r(mw[ts][0], mw[ts][1], 8 * s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qm[r] = ((v >> (8 * r)) & 0xffu) != 0;
+  }
+  __device__ __forceinline__ bool pred_q(long long, int r) const {
+    return qm[r];
+  }
+  __device__ __forceinline__ int group_q(long long, int r) const {
+    return qg[r];
+  }
+  __device__ __forceinline__ void values_q(long long, int r,
+                                           float* v) const {
+#pragma unroll
+    for (int k = 0; k < AM; ++k) v[k] = qv[k][r];
+  }
+};
 
 // Rows i .. i + 3, the staged columns in the quad's registers.
 template <class St, int AM>
@@ -795,6 +884,15 @@ agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
           }
         });
       }
+      // the bytes of a step: every staged column's slice (ColumnStage
+      // stages n_vals + 1 of its kCols)
+      unsigned step_tx = Stage::kBytes;
+      if constexpr (stage_fetches<Stage>::value) {
+        step_tx = 0;
+        st.each([&](const unsigned char*, int sz, int) {
+          step_tx += (unsigned)sz * kStageRows;
+        });
+      }
       unsigned j = 0;   // the ring's slot: stage j % S, its use j / S
       for (unsigned i = blockIdx.y; i < items; i += K) {
         const unsigned u = i / (unsigned)groups;
@@ -810,7 +908,7 @@ agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
             mbar_wait_cluster(&s_empty[k], ph);
           }
           unsigned char* slot = s_stage + (size_t)k * kSlot;
-          if (lane == 0) mbar_expect_tx(&s_full[k], nt * Stage::kBytes);
+          if (lane == 0) mbar_expect_tx(&s_full[k], nt * step_tx);
           __syncwarp();
           // (column, step) pairs, a lane each: one copy instruction for
           // all of them at once
@@ -851,11 +949,21 @@ agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
           const int nt = full - s0 < (unsigned)kStepsPerSlot
                              ? (int)(full - s0) : kStepsPerSlot;
           const int k = (int)(j % S);
+          if constexpr (stage_fetches<Stage>::value) {
+            if (live) {
+#pragma unroll
+              for (int ts = 0; ts < kStepsPerSlot; ++ts)
+                if (ts < nt)
+                  st.fetch(ts, 4 * ((long long)(s0 + ts) * stride + t));
+            }
+          }
           mbar_wait(&s_full[k], (j / S) & 1);
           if (live) {
             const unsigned char* slot = s_stage + (size_t)k * kSlot;
-            for (int ts = 0; ts < nt; ++ts) {
-              st.load(slot + ts * Stage::kBytes, lane);
+            auto one_step = [&](int ts) {
+              const unsigned char* step = slot + ts * Stage::kBytes;
+              st.load(step, lane);
+              if constexpr (stage_fetches<Stage>::value) st.load_fetched(ts);
               bool m[4];
               int g[4];
               float v[4][AM];
@@ -864,6 +972,13 @@ agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
                                v);
 #pragma unroll
               for (int r = 0; r < 4; ++r) acc.add(m[r], g[r], G, v[r]);
+            };
+            if constexpr (stage_fetches<Stage>::value) {
+#pragma unroll
+              for (int ts = 0; ts < kStepsPerSlot; ++ts)
+                if (ts < nt) one_step(ts);
+            } else {
+              for (int ts = 0; ts < nt; ++ts) one_step(ts);
             }
           }
           __syncwarp();
@@ -901,31 +1016,39 @@ agg_staged_kernel(Bind bind, int B, long long n, int G, int A, int parts,
         cnts[jg] = warp_sum(acc.cnt[jg]);
       }
       const int kept = warp_sum(acc.kept);
-      if (lane == 0) {   // the row [sums][counts][kept][0 ...], by quads
+      if (lane == 0 && G == GM && A == AM) {
+        // the row [sums][counts][kept][0 ...] by quads, constant indices
         constexpr int kWords = (GM * AM + GM + 1 + 3) / 4 * 4;
         int w[kWords];
 #pragma unroll
         for (int o = 0; o < kWords; ++o) w[o] = 0;
-        if (A == AM) {   // A is AM, or 0 where AM is 1: constant indices
 #pragma unroll
-          for (int jg = 0; jg < GM; ++jg) {
+        for (int jg = 0; jg < GM; ++jg) {
 #pragma unroll
-            for (int k = 0; k < AM; ++k)
-              w[jg * AM + k] = __float_as_int(sums[jg][k]);
-            w[GM * AM + jg] = cnts[jg];
-          }
-          w[GM * AM + GM] = kept;
-        } else {
-#pragma unroll
-          for (int jg = 0; jg < GM; ++jg) w[jg] = cnts[jg];
-          w[GM] = kept;
+          for (int k = 0; k < AM; ++k)
+            w[jg * AM + k] = __float_as_int(sums[jg][k]);
+          w[GM * AM + jg] = cnts[jg];
         }
+        w[GM * AM + GM] = kept;
         int4* row = reinterpret_cast<int4*>(ws + (long long)u * words);
 #pragma unroll
         for (int q = 0; q < kWords / 4; ++q)
-          if (4 * q < words)
-            row[q] = make_int4(w[4 * q], w[4 * q + 1], w[4 * q + 2],
-                               w[4 * q + 3]);
+          row[q] = make_int4(w[4 * q], w[4 * q + 1], w[4 * q + 2],
+                             w[4 * q + 3]);
+      } else if (lane == 0) {
+        // (G, A) below the instance's (GM, AM), or A = 0 where AM is 1:
+        // the row of (G, A) word by word
+        int* row = ws + (long long)u * words;
+#pragma unroll
+        for (int jg = 0; jg < GM; ++jg) {
+          if (jg >= G) break;
+#pragma unroll
+          for (int k = 0; k < AM; ++k)
+            if (k < A) row[jg * A + k] = __float_as_int(sums[jg][k]);
+          row[GA + jg] = cnts[jg];
+        }
+        row[GA + G] = kept;
+        for (int o = O; o < words; ++o) row[o] = 0;
       }
     }
     // every unit of the binding's group that this warp took is written:
@@ -1036,13 +1159,13 @@ int staged_clusters(int C, int* out) {
                          stage_smem<Stage>(), known, out);
 }
 
-// The partitions of the staged launch (the scalar instance's grid): its
-// workspace holds 9 x parts rows a binding.
-template <class Bind, int GM, int AM>
+// The partitions of the staged launch: the grid of the scalar register
+// instance (Src, GM, AM), at most nb.  Its workspace holds 9 x parts rows
+// a binding.
+template <class Src, int GM, int AM>
 int staged_parts(int nb, int* out) {
   int resident = 0;
-  const int err =
-      reg_resident<bound_source_t<Bind>, GM, AM, false>(&resident);
+  const int err = reg_resident<Src, GM, AM, false>(&resident);
   if (err != 0) return err;
   *out = nb < resident ? nb : resident;
   return 0;
@@ -1050,12 +1173,10 @@ int staged_parts(int nb, int* out) {
 
 template <class Bind, class Stage, int GM, int AM, int KB>
 int launch_staged_warps(Bind bind, int B, int C, long long n, int G, int A,
-                        int* ws, int nb, int* out, long long out_row,
+                        int* ws, int parts, int* out, long long out_row,
                         int* ticket, cudaStream_t stream) {
-  int parts = 0, clusters = 0;
-  int err = staged_parts<Bind, GM, AM>(nb, &parts);
-  if (err == 0)
-    err = staged_clusters<Bind, Stage, GM, AM, KB>(C, &clusters);
+  int clusters = 0;
+  int err = staged_clusters<Bind, Stage, GM, AM, KB>(C, &clusters);
   if (err != 0) return err;
   const int groups = (B + C * KB - 1) / (C * KB);
   // one wave: the clusters resident at once share the units x groups
@@ -1079,20 +1200,34 @@ int launch_staged_warps(Bind bind, int B, int C, long long n, int G, int A,
   return (int)cudaGetLastError();
 }
 
-// B bindings in the staged register regime, C blocks a cluster (a power of
-// two up to kAggMaxCluster) of staged_warps(B) bindings each.  A refused
-// cluster launch returns its error.
+// B bindings in the staged register regime over `parts` partitions, C
+// blocks a cluster (a power of two up to kAggMaxCluster) of
+// staged_warps(B) bindings each.  A refused cluster launch returns its
+// error.
 template <class Bind, class Stage, int GM, int AM>
-int launch_reg_staged(Bind bind, int B, int C, long long n, int G, int A,
-                      int* ws, int nb, int* out, long long out_row,
-                      int* ticket, cudaStream_t stream) {
+int launch_staged(Bind bind, int B, int C, long long n, int G, int A,
+                  int* ws, int parts, int* out, long long out_row,
+                  int* ticket, cudaStream_t stream) {
   if (C < 1 || C > kAggMaxCluster || (C & (C - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (staged_warps(B) == 8)
     return launch_staged_warps<Bind, Stage, GM, AM, 8>(
-        bind, B, C, n, G, A, ws, nb, out, out_row, ticket, stream);
+        bind, B, C, n, G, A, ws, parts, out, out_row, ticket, stream);
   return launch_staged_warps<Bind, Stage, GM, AM, 16>(
-      bind, B, C, n, G, A, ws, nb, out, out_row, ticket, stream);
+      bind, B, C, n, G, A, ws, parts, out, out_row, ticket, stream);
+}
+
+// The generated source's staged launch: the partitions of its own scalar
+// instance (at most nb).
+template <class Bind, class Stage, int GM, int AM>
+int launch_reg_staged(Bind bind, int B, int C, long long n, int G, int A,
+                      int* ws, int nb, int* out, long long out_row,
+                      int* ticket, cudaStream_t stream) {
+  int parts = 0;
+  const int err = staged_parts<bound_source_t<Bind>, GM, AM>(nb, &parts);
+  if (err != 0) return err;
+  return launch_staged<Bind, Stage, GM, AM>(bind, B, C, n, G, A, ws, parts,
+                                            out, out_row, ticket, stream);
 }
 
 // What the staged instance takes on this card at B bindings, C blocks a
@@ -1223,7 +1358,7 @@ template <class Bind, int NV, int GC>
 int agg_staged_rows(int nb, int* out) {
   constexpr int kV = NV > 0 ? NV : 1;
   if constexpr (register_regime(GC, NV)) {
-    const int err = staged_parts<Bind, GC, kV>(nb, out);
+    const int err = staged_parts<bound_source_t<Bind>, GC, kV>(nb, out);
     *out *= kAggWarps + 1;
     return err;
   } else {
@@ -1239,6 +1374,80 @@ int agg_staged_info(int B, int C, int* out) {
     return staged_info<Bind, Stage, GC, kV>(B, C, out);
   else
     return (int)cudaErrorInvalidValue;
+}
+
+// -- the precomputed form in the staged register regime --------------------
+// `filter_agg_batched` where the group index and every value column are
+// shared by every binding, contiguous and 16-byte aligned (the wrapper
+// decides: filter_agg.staged_operands): agg_staged_kernel over
+// ColumnStage, the mask fetched by each binding's warp.  An instance a
+// register step: one group with AM = 1, 2, 4, 8 or 16 value slots (A
+// rounded up to a power of two: the engine's scalar aggregations have one
+// or two values), else 8 groups of 8 values.  The partitions are the scalar launch's (the
+// instance launch_agg_batch takes for (G, A), <1, 16> or <8, 8>), so
+// binding b's sums are the scalar `filter_agg` launch's on b's operands
+// bit for bit.
+template <int V>
+using int_c = std::integral_constant<int, V>;
+
+// f(GM, AM, the scalar instance's GM, its AM) for (G, A), as
+// integral_constants; (G, A) outside the register regime is refused.
+template <int MAXA, class F>
+int with_column_stage(int G, int A, F&& f) {
+  constexpr int kOne = cmin(MAXA, kRegMaxValsOneGroup);
+  constexpr int kMany = cmin(MAXA, kRegMaxVals);
+  if (A < 0 || A > MAXA || !register_regime(G, A))
+    return (int)cudaErrorInvalidValue;
+  if (G > 1) return f(int_c<kRegMaxGroups>{}, int_c<kMany>{},
+                      int_c<kRegMaxGroups>{}, int_c<kMany>{});
+  if (A <= 1) return f(int_c<1>{}, int_c<1>{}, int_c<1>{}, int_c<kOne>{});
+  if (A <= 2) return f(int_c<1>{}, int_c<2>{}, int_c<1>{}, int_c<kOne>{});
+  if (A <= 4) return f(int_c<1>{}, int_c<4>{}, int_c<1>{}, int_c<kOne>{});
+  if (A <= 8) return f(int_c<1>{}, int_c<cmin(8, kOne)>{}, int_c<1>{},
+                       int_c<kOne>{});
+  return f(int_c<1>{}, int_c<kOne>{}, int_c<1>{}, int_c<kOne>{});
+}
+
+// B bindings of the precomputed form in the staged register regime: `ws`
+// holds B x columns_staged_rows(nb) rows, `out` B result rows `out_row`
+// words apart, `ticket` B tickets at 0.
+template <int MAXA>
+int launch_columns_staged(const ColumnBatch<MAXA>& bind, int B, int C,
+                          long long n, int G, int A, int nb, int* ws,
+                          int* out, long long out_row, int* ticket,
+                          cudaStream_t stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  return with_column_stage<MAXA>(G, A, [&](auto gm, auto am, auto sgm,
+                                           auto sam) {
+    constexpr int GM = decltype(gm)::value, AM = decltype(am)::value;
+    int parts = 0;
+    const int err = staged_parts<ColumnSource<MAXA>, decltype(sgm)::value,
+                                 decltype(sam)::value>(nb, &parts);
+    if (err != 0) return err;
+    return launch_staged<ColumnBatch<MAXA>, ColumnStage<MAXA, AM>, GM, AM>(
+        bind, B, C, n, G, A, ws, parts, out, out_row, ticket, stream);
+  });
+}
+
+// The workspace rows a binding of launch_columns_staged needs: 9 x parts.
+template <int MAXA>
+int columns_staged_rows(int nb, int G, int A, int* out) {
+  return with_column_stage<MAXA>(G, A, [&](auto, auto, auto sgm, auto sam) {
+    const int err = staged_parts<ColumnSource<MAXA>, decltype(sgm)::value,
+                                 decltype(sam)::value>(nb, out);
+    *out *= kAggWarps + 1;
+    return err;
+  });
+}
+
+// staged_info of the instance launch_columns_staged takes.
+template <int MAXA>
+int columns_staged_info(int B, int C, int G, int A, int* out) {
+  return with_column_stage<MAXA>(G, A, [&](auto gm, auto am, auto, auto) {
+    constexpr int GM = decltype(gm)::value, AM = decltype(am)::value;
+    return staged_info<ColumnBatch<MAXA>, ColumnStage<MAXA, AM>, GM, AM>(
+        B, C, out);
+  });
 }
 
 // The scalar launch: one binding.  `ws` holds nb x agg_row_words(G, A)

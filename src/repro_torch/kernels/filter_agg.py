@@ -32,7 +32,11 @@ versions loop over the bindings through the scalar plain versions.  The
 selective form runs a warp a binding in clusters of blocks along the
 bindings (`cluster_shape`) and stages the columns every binding shares
 (`staged_columns`) in each cluster's shared memory, each slice copied
-once a cluster; `staging` counts the launches that staged a column.
+once a cluster; `staging` counts the launches that staged a column.  The
+precomputed form takes the same kernel where its group index and value
+columns are shared, contiguous and aligned (`staged_operands`: every
+engine call), each binding's mask read by its own warp a ring slot
+ahead; `filter_agg_staging` counts its launches by route.
 
 Each batched form also has a packed output (`*_batched_packed`), the
 one tensor the engine's custom operators return (`ops.py`): the
@@ -69,6 +73,11 @@ launches = {"filter_agg": 0, "selective_filter_agg": 0,
 # each cluster's shared memory) or "unstaged" (every column from device
 # memory)
 staging = {"staged": 0, "unstaged": 0}
+# the launches of `filter_agg_batched` by route: "staged" (the group index
+# and the value columns multicast to each cluster's shared memory, each
+# binding's mask read by its own warp: `staged_operands`) or "unstaged"
+# (a block a binding, every operand from device memory)
+filter_agg_staging = {"staged": 0, "unstaged": 0}
 
 # one block holds G x (A + 1) 4-byte accumulators in shared memory; the
 # card's per-block opt-in limit is 227 KB, less the kernel's own scratch
@@ -202,8 +211,15 @@ def _lib():
                                          vp]
         lib.repro_filter_agg_batched.argtypes = [
             vp, ll, vp, ll, vp, vp, i, i, ll, i, i, vp, vp, ll, vp, vp]
+        lib.repro_filter_agg_batched_staged.argtypes = [
+            vp, ll, vp, vp, i, i, i, ll, i, i, vp, vp, ll, vp, vp]
+        lib.repro_filter_agg_staged_rows.argtypes = [i, i, i, vp]
+        lib.repro_filter_agg_staged_info.argtypes = [i, i, i, i, vp]
         for fn in (lib.repro_agg_blocks, lib.repro_filter_agg_max_vals,
-                   lib.repro_filter_agg, lib.repro_filter_agg_batched):
+                   lib.repro_filter_agg, lib.repro_filter_agg_batched,
+                   lib.repro_filter_agg_batched_staged,
+                   lib.repro_filter_agg_staged_rows,
+                   lib.repro_filter_agg_staged_info):
             fn.restype = ctypes.c_int
         if lib.repro_filter_agg_max_vals() != MAX_VALS:
             raise RuntimeError("filter_agg.cu and filter_agg.py disagree on "
@@ -265,6 +281,24 @@ def staged_columns(cols: dict, n_groups: int, n_vals: int) -> tuple:
         out.append(name)
         total += size
     return tuple(out)
+
+
+def _aligned_column(t) -> bool:
+    """One binding's shape (every binding shares it), contiguous, at a
+    16-byte aligned address."""
+    return t.ndim == 1 and (t.stride(0) == 1 or t.numel() <= 1) \
+        and t.data_ptr() % 16 == 0
+
+
+def staged_operands(mask, gidx, values: list, n_groups: int) -> bool:
+    """Whether a batched precomputed launch (one chunk of value columns)
+    takes the staged register regime: (G, A) in the register regime, and
+    the group index and every value column shared by every binding,
+    contiguous and 16-byte aligned; the mask, shared or batched, is read
+    by each binding's warp at any alignment.  Else it runs a block a
+    binding, every operand from device memory."""
+    return register_regime(n_groups, len(values)) and all(
+        _aligned_column(t) for t in (gidx, *values))
 
 
 def _check_fits(n_groups: int, n_vals: int):
@@ -418,21 +452,68 @@ def _filter_agg_batched_cuda(mask, gidx, values: list, n_groups: int):
     lib = _lib()
     stream = build.stream_ptr(mask)
     ticket = _ticket(mask.device, stream, B)
+    C, _padded = cluster_shape(B)
     rows, results = [], []
     for start, stop in value_chunks(n_groups, len(vals)):
         chunk = vals[start:stop]
         k = max(len(chunk), 1)
-        nb, ws, res = _result_rows(n, n_groups, len(chunk), B, mask.device)
-        build.check(lib.repro_filter_agg_batched(
-            build.ptr(mask), ms, build.ptr(gidx), gs,
-            (ctypes.c_void_p * k)(*[v.data_ptr() for v, _s in chunk]),
-            (ctypes.c_longlong * k)(*[st for _v, st in chunk]), len(chunk),
-            B, n, n_groups, nb, build.ptr(ws), res.data_ptr(), res.stride(0),
-            build.ptr(ticket), stream), "filter_agg_batched")
+        ptrs = (ctypes.c_void_p * k)(*[v.data_ptr() for v, _s in chunk])
+        if staged_operands(mask, gidx, [v for v, _s in chunk], n_groups):
+            nb, ws, res = _result_rows(
+                n, n_groups, len(chunk), B, mask.device,
+                functools.partial(_agg_staged_rows, mask.device.index,
+                                  n_groups, len(chunk)))
+            build.check(lib.repro_filter_agg_batched_staged(
+                build.ptr(mask), ms, build.ptr(gidx), ptrs, len(chunk), B, C,
+                n, n_groups, nb, build.ptr(ws), res.data_ptr(),
+                res.stride(0), build.ptr(ticket), stream),
+                "filter_agg_batched")
+            build.bump(filter_agg_staging, "staged")
+        else:
+            nb, ws, res = _result_rows(n, n_groups, len(chunk), B,
+                                       mask.device)
+            build.check(lib.repro_filter_agg_batched(
+                build.ptr(mask), ms, build.ptr(gidx), gs, ptrs,
+                (ctypes.c_longlong * k)(*[st for _v, st in chunk]),
+                len(chunk), B, n, n_groups, nb, build.ptr(ws),
+                res.data_ptr(), res.stride(0), build.ptr(ticket), stream),
+                "filter_agg_batched")
+            build.bump(filter_agg_staging, "unstaged")
         build.bump(launches, "filter_agg_batched")
         rows.append(res)
         results.append(agg_unpack(res, n_groups, len(chunk)))
     return _batched_result(rows, results)
+
+
+@functools.lru_cache(maxsize=1024)
+def _agg_staged_rows(device: int, n_groups: int, n_vals: int, nb: int) -> int:
+    """The workspace rows a binding of the staged precomputed launch
+    needs on CUDA device `device` (`columns_staged_rows`: 9 x the scalar
+    launch's partitions, which its residency on the card sets)."""
+    out = ctypes.c_int()
+    build.check(_lib().repro_filter_agg_staged_rows(nb, n_groups, n_vals,
+                                                    ctypes.byref(out)),
+                "filter_agg_batched rows")
+    return out.value
+
+
+def filter_agg_batched_info(mask, gidx, values: list, n_groups: int) -> dict:
+    """What a batched precomputed call (its operands as
+    `filter_agg_batched` takes them, on the card; the register regime,
+    one chunk of value columns) takes: its route and, staged, the cluster
+    size at these bindings, the clusters resident at once on this card,
+    the ring's shared memory and stages."""
+    B = batch_size((mask, 1), (gidx, 1), *[(v, 1) for v in values])
+    if not staged_operands(mask, gidx, list(values), n_groups):
+        return {"route": "unstaged"}
+    C, padded = cluster_shape(B)
+    out = (ctypes.c_int * 5)()
+    build.check(_lib().repro_filter_agg_staged_info(
+        B, C, n_groups, len(values), out), "filter_agg_batched info")
+    return {"route": "staged", "cluster": C, "warps": out[4],
+            "padded_bindings": padded, "active_clusters": out[0],
+            "stage_smem_bytes": out[1], "stages": out[2],
+            "staged": ["gidx"] + [f"values[{k}]" for k in range(len(values))]}
 
 
 def selective_source(cols: dict, scalars: list, pred_fn, value_fns: list,
