@@ -133,6 +133,22 @@ result line):
      (the per-shard shapes: padded blocks, the sharded scan's mask,
      per-shard capacities); the median of 3 `run()`s beside phase 5's
      unsharded median (a record only: one card cannot gain from shards);
+  8b. the sharded batched pass: the six parameterized plans at
+     opt-pallas on 2- and 4-shard meshes, 64 bindings each (phase 7
+     (b)'s) as one `run_many`, one vmapped staged walk in each shard's
+     thread: one execution, the launches of one sharded `run()` (not 64
+     times them), every shard's output bit for bit the same, each slot
+     bit for bit the sharded `run()` of its binding (where two such runs
+     agree bit for bit; else `assert_same`) and phase 7 (b)'s unsharded
+     slot under `assert_same`, the points' counts (64, n_shards); each
+     shard's launches by route (the route counters, counted per shard
+     thread) every other shard's, q14's and q19's aggregation staged on
+     every shard; each batched call of the last shard the route its operands
+     take as fresh allocations, held against the plain version after the
+     launches are read; ms a binding of the pass against 64 sharded
+     `run()`s and the pass's peak device memory beside phase 7 (b)'s;
+     then `CompiledQueryBatch([q1, q6, q14])`'s resident device bytes
+     against its members built alone, its answers theirs;
   9. the port's plan fuzzer (`repro_torch.core.analysis.fuzz.run_fuzz`)
      on the card at sf 0.05: 24 seeded plans through every `optimize()`
      rung (opt-shard over 4 virtual slots), `naive` and `opt` compiled
@@ -206,7 +222,9 @@ result line):
      `serving_launches` from phase 7, `sharded_launches` from phase 8's
      opt-pallas runs, `sharded_rows` and `sharded_max_abs_err` from its
      kernel checks; the batched instances' rows their `launches` from
-     phase 7 (b)'s batched pass and their times from phase 4c), and last
+     phase 7 (b)'s batched pass, `sharded_batched_launches` and
+     `sharded_batched_max_abs_err` from phase 8 (b), and their times from
+     phase 4c), and last
      the result line.
 
 Every timed kernel shape is also profiled over 10 calls
@@ -1785,7 +1803,9 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
     overflow and its feedback re-plan, (d) the tiered cache, (e) the
     query server, (f) the chaos harness, (g) warm state saved and loaded,
     (h) device memory.  Logs a line of numbers a step; returns the
-    batched pass's launches by batched instance."""
+    batched pass's launches by batched instance, its answers (query ->
+    the 64 slots, default and alternative bindings in turn) and its peak
+    device memory (None in a rehearsal)."""
     import dataclasses
     import shutil
     import tempfile
@@ -2014,7 +2034,7 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
                 + ("scalar walks" if walks else "batched") + "), one pass "
                 f"{pass_ms / n:.3f}, {n} runs {runs_ms / n:.3f} ms a "
                 "binding (least of 3)")
-    del entries, passes
+    del entries
 
     # a hand-planted 64-row point that one slot of 64 overflows: that slot
     # alone re-runs, through the twin, in one batched pass of its own
@@ -2164,7 +2184,8 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
         check(report["memory"]["after_close_bytes"]
               <= mem_before + (64 << 20),
               "closing the caches and servers left device memory held")
-    return batched_launched
+    return (batched_launched, passes,
+            report.get("batched_pass_peak_bytes"))
 
 
 # ---------------------------------------------------------------------------
@@ -2367,6 +2388,312 @@ def sharded_path(db, queries, card, unsharded_ms, counters, args):
         log(f"phase 8 {name}: per-shard calls up to {c['rows']} rows, max "
             f"err {c['max_abs_err']} against the plain version")
     return launched, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 8 (b): the sharded batched pass
+# ---------------------------------------------------------------------------
+
+SHARDED_BATCH_SHARDS = (2, 4)    # the meshes of the sharded batched pass
+# the batch whose one set of resident inputs phase 8 (b) measures
+RESIDENT_BATCH = ("q1", "q6", "q14")
+
+
+def batched_route(name: str, a):
+    """The route a batched instance's wrapper takes for the operands `a`
+    of its packed form, as the wrapper decides it from their shapes and
+    addresses: each value chunk's staged flag (`filter_agg_batched`),
+    the staged columns (`selective_filter_agg_batched`), the shared-tile
+    scan (`compact_pred_batched`); None for `compact_batched` (one
+    route)."""
+    kc, kf = kmod("compact"), kmod("filter_agg")
+    if name == "filter_agg_batched":
+        mask, gidx, vals, G = a
+        return tuple(kf.staged_operands(mask, gidx, vals[lo:hi], G)
+                     for lo, hi in kf.value_chunks(G, len(vals)))
+    if name == "selective_filter_agg_batched":
+        cols, _fp, _ip, _kinds, _pred, vfns, _gfn, G = a
+        return kf.staged_columns(cols, G, len(vfns))
+    if name == "compact_pred_batched":
+        return kc.shared_tile(a[0], a[4])
+    return None
+
+
+def batch_rows(a) -> int:
+    """The rows a binding of a batched call's first operand."""
+    first = a[0]
+    return (first if not isinstance(first, dict)
+            else next(iter(first.values()))).shape[-1]
+
+
+def same_answer_bits(a: dict, b: dict) -> bool:
+    """Two decoded answers with the same columns, dtypes and bytes."""
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def sharded_batched_path(db, unsharded, unsharded_peak, counters,
+                         bcounters, args) -> dict:
+    """The six parameterized plans at opt-pallas on 2- and 4-shard
+    meshes of the card (virtual slots of cuda:0 on one card), 64
+    bindings each (phase 7 (b)'s, default and alternative in turn) as
+    ONE `run_many`: one vmapped staged walk in each shard's thread.
+    Each pass is one execution, launches exactly what one sharded
+    `run()` of the plan launches, its shards bit for bit the same; each
+    slot is bit for bit the sharded `run()` of its binding (where two
+    such runs are themselves bit-identical; `assert_same` where they are
+    not) and phase 7 (b)'s unsharded answer of the slot under
+    `assert_same`.  Each shard's launches by route (the wrappers' route
+    counters, counted per shard thread) are every other shard's, and
+    the SHARED_COLUMN_QUERIES' instance takes the staged route on every
+    shard where the sharded plan calls it; each
+    batched call of the last shard takes the route the same operands
+    take as fresh allocations, the unsharded pass's resident columns,
+    and is held against its plain version after the launches are read.
+    Logs ms a binding of the pass against 64 sharded runs and the
+    pass's peak device memory beside phase 7 (b)'s; then the resident
+    bytes of `CompiledQueryBatch(RESIDENT_BATCH)` against its three
+    members built alone.  Returns the phase's batched launches and
+    checks by batched instance."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from repro_torch.core import CompiledQuery, CompiledQueryBatch, PlanCache
+    from repro_torch.core import mesh, preset
+    from repro_torch.kernels import build
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES, QUERIES)
+
+    cuda = not args.rehearse
+    device = "cpu" if args.rehearse else None
+    dev = torch.device("cuda" if cuda else "cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    big = max(RUN_MANY_SIZES)
+    shapes = sorted(PARAM_QUERIES)
+    kc, kf = kmod("compact"), kmod("filter_agg")
+    route_of = {id(kf.staging): "selective_filter_agg_batched",
+                id(kf.filter_agg_staging): "filter_agg_batched",
+                id(kc.staging): "compact_pred_batched"}
+    lock = threading.Lock()
+    per_shard: dict = {}        # (rank, instance, route) -> launches
+    records: list = []          # (instance, args copy, kwargs, routes)
+    recording = [None]          # the shard thread recorded, or None
+    real_bump = build.bump
+
+    def bump(counter, key, n=1):
+        name = route_of.get(id(counter))
+        t = threading.current_thread().name
+        if name is not None and t.startswith("repro-shard-"):
+            k = (int(t.rsplit("-", 1)[1]), name, key)
+            with lock:
+                per_shard[k] = per_shard.get(k, 0) + n
+        real_bump(counter, key, n)
+
+    saved = {}
+    for name, (mod, packed, *_r) in BATCHED.items():
+        m = kmod(mod)
+        real = saved[name] = getattr(m, packed)
+
+        def rec(*a, _real=real, _name=name, **k):
+            if threading.current_thread().name == recording[0]:
+                fresh = to(dev, a, copy=True)
+                records.append((_name, fresh, k, batched_route(_name, a),
+                                batched_route(_name, fresh)))
+            return _real(*a, **k)
+        setattr(m, packed, rec)
+    build.bump = bump
+    launched = {name: 0 for name in BATCHED}
+    checks: dict = {}
+    report: dict = {}
+    try:
+        for n in SHARDED_BATCH_SHARDS:
+            log(f"phase 8 (b) x{n}: " + place_shards(n, cuda))
+            S = dataclasses.replace(preset("opt-pallas"), shards=n)
+            cache = PlanCache(db, device=device)
+            for q in shapes:
+                t_q = time.perf_counter()
+                what = f"{q} opt-pallas x{n} run_many x{big}"
+                b = param_bindings(PARAM_QUERIES, PARAM_ALT_BINDINGS, q)
+                cq, _rt = cache.get(PARAM_QUERIES[q][0](), S, b["default"])
+                check(cq.n_shards == n, f"{what}: {cq.n_shards} shards")
+                rts = [{k: v[k] for k in cq.param_spec}
+                       for v in (b["default"], b["alt"])]
+                bl = [rts[i % 2] for i in range(big)]
+                cq.run_many(bl[:4])          # builds what the pass needs
+                # one sharded run's launches, and each binding's answer,
+                # twice
+                before = {k: d[c] for k, (d, c) in counters.items()}
+                singles = [cq.run(rts[0])]
+                one_run = {k: d[c] - before[k]
+                           for k, (d, c) in counters.items()
+                           if d[c] > before[k]}
+                singles += [cq.run(rts[1])]
+                again = [cq.run(r) for r in rts]
+                determined = [same_answer_bits(x, y)
+                              for x, y in zip(singles, again)]
+                # the pass, its launches read around it, the last shard's
+                # batched calls recorded
+                before = {k: d[c] for k, (d, c) in counters.items()}
+                bbefore = {k: d[c] for k, (d, c) in bcounters.items()}
+                per_shard.clear()
+                e0, o0 = cq.n_executions, cq.n_overflows
+                recording[0] = f"repro-shard-{n - 1}"
+                got = cq.run_many(bl)
+                recording[0] = None
+                check(cq.n_executions - e0 == 1,
+                      f"{what}: {cq.n_executions - e0} executions")
+                check(cq.n_overflows == o0, f"{what}: an overflow")
+                pass_launches = {k: d[c] - before[k]
+                                 for k, (d, c) in counters.items()
+                                 if d[c] > before[k]}
+                for name, (d, c) in bcounters.items():
+                    if d[c] > bbefore[name]:
+                        launched[name] += d[c] - bbefore[name]
+                        base = BATCHED_OF[name]
+                        pass_launches[base] = pass_launches.get(base, 0) \
+                            + d[c] - bbefore[name]
+                if cuda:
+                    check(pass_launches == one_run,
+                          f"{what}: launches {pass_launches}, not one "
+                          f"sharded run's {one_run}")
+                routes = {}
+                for (rank, name, key), v in sorted(per_shard.items()):
+                    routes.setdefault(rank, {}).setdefault(name, {})[key] = v
+                if cuda:
+                    check(len(routes) == n or not per_shard,
+                          f"{what}: route counts from shards "
+                          f"{sorted(routes)}")
+                    for rank, r in routes.items():
+                        check(r == routes[0], f"{what}: shard {rank}'s "
+                              f"launches by route {r}, shard 0's "
+                              f"{routes[0]}")
+                    # the instance phase 7 (b) holds to its staged route
+                    # for this plan, where the sharded plan calls it (q12's
+                    # sharded scan compacts a mask instead)
+                    name = SHARED_COLUMN_QUERIES.get(q, (0, 0, None))[2]
+                    for rank, r in routes.items():
+                        got_r = r.get(name, {})
+                        check(got_r.get("unstaged", 0) == 0,
+                              f"{what}: shard {rank}'s {name} by route "
+                              f"{got_r}, not all staged")
+                # every slot: the sharded run's bits, phase 7 (b)'s answer
+                for i, g in enumerate(got):
+                    one = singles[i % 2]
+                    if determined[i % 2]:
+                        check(same_answer_bits(g, one),
+                              f"{what}[{i}]: not the sharded run's bits")
+                    else:
+                        assert_same(g, one, False, f"{what}[{i}]")
+                    assert_same(g, unsharded[q][i], q in SORT_INSENSITIVE,
+                                f"{what}[{i}] against the unsharded pass")
+                shards = cq.execute_shards_many(cq.bind_many(bl))
+                shards_identical(shards, what)
+                for pid, c in cq.execute_many(cq.bind_many(bl))[2].items():
+                    check(tuple(c.shape) == (big, n),
+                          f"{what}: point {pid}'s counts {tuple(c.shape)}")
+                del shards
+                # times (unrecorded): the pass and 64 sharded runs
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                sync()
+                t = time.perf_counter()
+                cq.run_many(bl)
+                sync()
+                pass_ms = (time.perf_counter() - t) * 1e3
+                peak = torch.cuda.max_memory_allocated() if cuda else None
+                t = time.perf_counter()
+                for r in bl:
+                    cq.run(r)
+                sync()
+                runs_ms = (time.perf_counter() - t) * 1e3
+                # the last shard's batched calls: the route of a fresh
+                # allocation, then against the plain version
+                for name, a, k, r_got, r_fresh in records:
+                    check(r_got == r_fresh, f"{what}: {name} took route "
+                          f"{r_got}, {r_fresh} on fresh operands")
+                    mod, _packed, public, plain, _s = BATCHED[name]
+                    m = kmod(mod)
+                    err = max_err(getattr(m, public)(*a, **k),
+                                  getattr(m, plain)(*a, **k),
+                                  f"{what}: {name}")
+                    e = checks.setdefault(name, {"max_abs_err": 0.0,
+                                                 "calls": 0, "rows": 0})
+                    e["max_abs_err"] = max(e["max_abs_err"], err)
+                    e["calls"] += 1
+                    e["rows"] = max(e["rows"], batch_rows(a))
+                seen = sorted({(name, str(r)) for name, _a, _k, r, _f
+                               in records})
+                records.clear()
+                row = {"ms_per_binding": pass_ms / big,
+                       "run_ms_per_binding": runs_ms / big,
+                       "peak_bytes": peak, "launches": pass_launches,
+                       "routes_by_shard": routes.get(0),
+                       "last_shard_routes": seen}
+                report[f"{q} x{n}"] = row
+                log(f"sharded batched {what}: one execution, launches "
+                    f"{json.dumps(pass_launches)} (one sharded run's), "
+                    f"{pass_ms / big:.4f} ms a binding against "
+                    f"{runs_ms / big:.4f} ms a sharded run, peak device "
+                    f"memory {peak} bytes, routes a shard "
+                    f"{json.dumps(routes.get(0))}, last shard's calls "
+                    f"{json.dumps(seen)}, slots bit-identical to the "
+                    f"sharded runs: {all(determined)}, "
+                    f"{time.perf_counter() - t_q:.1f} s")
+                del cq, got
+            cache.close()
+    finally:
+        build.bump = real_bump
+        for name, (mod, packed, *_r) in BATCHED.items():
+            setattr(kmod(mod), packed, saved[name])
+        mesh.virtual_devices("cpu" if args.rehearse else "cuda:0", 1)
+    if cuda:
+        peaks = [r["peak_bytes"] for r in report.values()]
+        log(f"sharded batched pass: peak device memory {max(peaks)} bytes "
+            f"(one pass of {big} bindings), unsharded (phase 7 (b)) "
+            f"{unsharded_peak} bytes")
+    unchecked = [k for k, v in launched.items() if v and k not in checks]
+    check(not unchecked, f"phase 8 (b): no check of {unchecked}")
+    for name, c in checks.items():
+        log(f"phase 8 (b) {name}: {c['calls']} calls of the last shard up "
+            f"to {c['rows']} rows, max err {c['max_abs_err']} against the "
+            "plain version")
+
+    # CompiledQueryBatch: one set of resident inputs, against its members
+    # built alone
+    import gc
+
+    gc.collect()
+    sync()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    batch = CompiledQueryBatch([QUERIES[q]() for q in RESIDENT_BATCH], db,
+                               preset("opt-pallas"), device=device)
+    sync()
+    held = (torch.cuda.memory_allocated() if cuda else 0) - base
+    alone = [CompiledQuery(QUERIES[q](), db, preset("opt-pallas"),
+                           device=device) for q in RESIDENT_BATCH]
+    sync()
+    held_alone = (torch.cuda.memory_allocated() if cuda else 0) - base \
+        - held
+    for q, g, cq in zip(RESIDENT_BATCH, batch.run(), alone):
+        assert_same(g, cq.run(), False, f"CompiledQueryBatch {q}")
+    check(len(batch.inputs) < sum(len(q.inputs) for q in batch.queries),
+          "CompiledQueryBatch: the members share no input")
+    if cuda:
+        check(held < held_alone, f"CompiledQueryBatch holds {held} bytes, "
+              f"its members alone {held_alone}")
+    report["resident_batch"] = {
+        "queries": list(RESIDENT_BATCH), "device_bytes": held,
+        "members_alone_device_bytes": held_alone,
+        "input_nbytes": batch.input_nbytes(),
+        "members_input_nbytes": sum(q.input_nbytes() for q in alone)}
+    log("CompiledQueryBatch resident inputs: "
+        + json.dumps(report["resident_batch"]))
+    del batch, alone
+    return {"launches": launched, "checks": checks, "report": report}
 
 
 # ---------------------------------------------------------------------------
@@ -3518,7 +3845,8 @@ def main() -> int:
         d[k] = 0
     bcounters = {name: (kmod(spec[0]).launches, name)
                  for name, spec in BATCHED.items()}
-    batched_launched = serving_path(db, served, counters, bcounters, args)
+    batched_launched, unsharded_passes, unsharded_peak = serving_path(
+        db, served, counters, bcounters, args)
     serving_launched = {name: d[k] for name, (d, k) in counters.items()}
     log(f"serving path launches: {json.dumps(serving_launched)}")
     if not args.rehearse:
@@ -3539,6 +3867,16 @@ def main() -> int:
         check(any(sharded_launched.values()),
               "no kernel launched on the sharded path")
     log(f"phase 8 (sharded path): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shb = sharded_batched_path(db, unsharded_passes, unsharded_peak,
+                               counters, bcounters, args)
+    del unsharded_passes
+    log(f"sharded batched pass launches: {json.dumps(shb['launches'])}")
+    if not args.rehearse:
+        check(any(shb["launches"].values()),
+              "no batched kernel launched in the sharded batched pass")
+    log(f"phase 8 (b) (sharded batched pass): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 9 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3586,6 +3924,9 @@ def main() -> int:
             "source": SOURCES[BATCHED_OF[name]],
             "replaces": REPLACES[BATCHED_OF[name]] + " (vmapped)",
             "launches": batched_launched[name],
+            "sharded_batched_launches": shb["launches"][name],
+            "sharded_batched_max_abs_err": shb["checks"].get(
+                name, {}).get("max_abs_err"),
             "max_abs_err": c["max_abs_err"], "ms": c.get("ms"),
             "device_ms": c.get("device_ms"),
             "kernels_per_call": c.get("kernels_per_call"),

@@ -15,19 +15,68 @@ the reference package's backend:
     `axis_index`) act on the shard group the staged walk is bound to
     (`core/mesh.py`), and are identities on the collection walk, which
     has no group: sharded staging decisions see a one-shard world there.
+
+A batched (vmapped) staged walk hands its backend a `token`, a tensor
+vmap batches over the bindings.  Every collective then calls one
+custom operator (`repro_torch::collective`) with the token beside its
+value, so that the operator's vmap rule runs in every shard, whether
+that shard's value depends on the bindings or not.  The rule deposits a
+plain tensor (the bindings in front where the value is batched), and
+combines as the scalar walk does: a value no shard batched stays one
+value, and where some shard's is batched every unbatched one is
+expanded to the bindings first.  Each binding's result is the scalar
+collective's, bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.core import mesh
+
+_FOLDS = {"psum": torch.add, "pmax": torch.maximum, "pmin": torch.minimum}
+
+
+def combine(vals: list, how: str, dim: int = 0):
+    """Every shard's value, in rank order, combined: a reduction
+    (`psum`, `pmax`, `pmin`) folds them left to right; `gather` and
+    `stack` concatenate them along `dim` or stack them at it."""
+    if how == "gather":
+        return torch.cat(vals, dim)
+    if how == "stack":
+        return torch.stack(vals, dim)
+    return functools.reduce(_FOLDS[how], vals[1:], vals[0])
+
+
+@torch.library.custom_op("repro_torch::collective", mutates_args=())
+def _collective_op(x: torch.Tensor, token: torch.Tensor, group: int,
+                   rank: int, how: str) -> torch.Tensor:
+    return combine(mesh.group_of(group).exchange(rank, x), how)
+
+
+@_collective_op.register_vmap
+def _collective_vmap(info, in_dims, x, token, group, rank, how):
+    batched = in_dims[0] is not None
+    vals, flags = mesh.group_of(group).exchange_batched(
+        rank, x.movedim(in_dims[0], 0) if batched else x, batched)
+    if not any(flags):
+        return combine(vals, how), None
+    vals = [v if f else v.expand(info.batch_size, *v.shape)
+            for v, f in zip(vals, flags)]
+    return combine(vals, how, 1), 0
 
 
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, device="cpu", group=None, rank: int = 0):
+    def __init__(self, device="cpu", group=None, rank: int = 0,
+                 token=None):
         self.device = torch.device(device)
         self.group = group        # mesh.ShardGroup of a sharded staged walk
         self.rank = rank
+        # a batched walk's tensor that vmap batches (the module docstring)
+        self.token = token
 
     @staticmethod
     def take(arr, idx):
@@ -112,31 +161,27 @@ class TorchBackend:
 
     # -- mesh collectives over the bound shard group: every shard's value,
     # -- combined in rank order, so every shard gets the same bits
-    def _reduce(self, x, op):
-        if self.group is None:
-            return x
-        vals = self.group.exchange(self.rank, x)
-        out = vals[0]
-        for v in vals[1:]:
-            out = op(out, v)
-        return out
+    def _collect(self, x, how: str):
+        if self.token is None:
+            return combine(self.group.exchange(self.rank, x), how)
+        return _collective_op(x, self.token, self.group.handle, self.rank,
+                              how)
 
     def psum(self, x, axis):
-        return self._reduce(x, torch.add)
+        return x if self.group is None else self._collect(x, "psum")
 
     def pmax(self, x, axis):
-        return self._reduce(x, torch.maximum)
+        return x if self.group is None else self._collect(x, "pmax")
 
     def pmin(self, x, axis):
-        return self._reduce(x, torch.minimum)
+        return x if self.group is None else self._collect(x, "pmin")
 
     def all_gather(self, x, axis, tiled=False):
         """The shards' `x` concatenated (`tiled`) or stacked along a new
         leading axis, in rank order."""
         if self.group is None:
             return x if tiled else x[None]
-        vals = self.group.exchange(self.rank, x)
-        return torch.cat(vals) if tiled else torch.stack(vals)
+        return self._collect(x, "gather" if tiled else "stack")
 
     def axis_index(self, axis) -> int:
         return self.rank

@@ -60,8 +60,18 @@ rank order, so every shard's output is the same, and shard 0's is the
 result.  Each point's count is an `(n_shards,)` vector, read in the same
 one device-to-host copy; overflow and the scalar feedback key off the
 worst shard, and `observed_shard` keeps the per-shard maxima.  A
-sharded `run_many` runs one sharded walk a binding (the reference
-composes its batched form under the shard map; the port does not yet).
+sharded batched pass (`run_many`, `run_batched`, `execute_many`) runs
+one staged walk under `torch.func.vmap` in each shard's thread, the
+counterpart of the reference's `shard_wrap(fn_many)`: the parameter
+vectors are bound once (and copied once to each other device of the
+mesh), every shard maps them over its own blocks, and its collectives
+go through their vmap rule (`core/backend.py`), which exchanges plain
+tensors with the bindings in front.  Each point's counts come out as an
+`(N, n_shards)` tensor; each slot's overflow keys off its worst shard,
+and `observed_shard` takes the elementwise max over the slots.  Each
+shard's block of a partitioned input is an allocation of its own, so
+every block starts aligned as an unsharded column does and the batched
+kernels take the same route on every shard.
 """
 from __future__ import annotations
 
@@ -130,7 +140,10 @@ class CompiledQuery:
     for every runtime (numeric) Param left residual in the optimized plan;
     they are also the values used during the collection walk.
     Compile-time params (string values, Limit.n) must have been
-    substituted before construction — pass `bindings` to `optimize`."""
+    substituted before construction — pass `bindings` to `optimize`.
+    `pool` (unsharded only): a dict of resident inputs shared with other
+    queries, by input key; the query takes a key's tensor from it, and
+    adds the ones it copies (`CompiledQueryBatch`)."""
 
     # tiering.Runnable surface: a batch is vmapped staged walks (or
     # scalar ones below BATCH_MIN), never padded
@@ -140,7 +153,7 @@ class CompiledQuery:
                  params: Optional[dict] = None,
                  est_params: Optional[dict] = None,
                  observed: Optional[dict] = None,
-                 device=None):
+                 device=None, pool: Optional[dict] = None):
         global STAGINGS
         self.device = resolve_device(device)
         with _STAGINGS_LOCK:
@@ -258,9 +271,12 @@ class CompiledQuery:
         self.resident: dict = {}
         self.shard_resident: list[dict] = []
         if self._mesh is None:
-            self.resident = {k: torch.from_numpy(v).to(self.device)
-                             for k, v in self.inputs.items()
-                             if not k.startswith("param/")}
+            pool = {} if pool is None else pool
+            for k, v in self.inputs.items():
+                if not k.startswith("param/"):
+                    if k not in pool:
+                        pool[k] = torch.from_numpy(v).to(self.device)
+                    self.resident[k] = pool[k]
         else:
             self.shard_resident = self._shard_blocks()
         self.stage_time = time.perf_counter() - t0
@@ -274,12 +290,15 @@ class CompiledQuery:
 
     def _shard_blocks(self) -> list[dict]:
         """One resident input dict per shard.  A partitioned input's
-        block s is rows [s*P, (s+1)*P) of its padded copy: a view of one
-        tensor when every shard sits on one device, a copy on its shard's
-        device otherwise.  A replicated input is copied once a device."""
+        block s is rows [s*P, (s+1)*P) of its padded copy, copied to its
+        shard's device as an allocation of its own, even where every
+        shard sits on one device: a view at row s*P would start P rows
+        into one tensor, off the 16-byte boundary the batched kernels'
+        staged routes read from (`filter_agg.staged_operands`,
+        `compact.shared_tile`) whenever P times the row's bytes is not a
+        multiple of 16.  A replicated input is copied once a device."""
         devs = self._mesh.devices
         n = self.n_shards
-        one_device = len(set(devs)) == 1
         blocks: list[dict] = [{} for _ in range(n)]
         for k, v in self.inputs.items():
             if k.startswith("param/"):
@@ -290,11 +309,9 @@ class CompiledQuery:
                     blocks[s][k] = on[d]
                 continue
             rows = v.shape[0] // n      # ShardPlan pads to n blocks
-            whole = torch.from_numpy(v).to(devs[0]) if one_device else None
             for s, d in enumerate(devs):
-                lo, hi = s * rows, (s + 1) * rows
-                blocks[s][k] = whole[lo:hi] if one_device else \
-                    torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(d)
+                blocks[s][k] = torch.from_numpy(np.ascontiguousarray(
+                    v[s * rows:(s + 1) * rows])).to(d, copy=True)
         return blocks
 
     def _synchronize(self) -> None:
@@ -316,7 +333,7 @@ class CompiledQuery:
         seconds."""
         t0 = time.perf_counter()
         self.execute(self.bind())
-        if self.param_spec and self._mesh is None:
+        if self.param_spec:
             self.execute_many(self.bind_many([self.param_defaults]))
         self._synchronize()
         self.compile_time = time.perf_counter() - t0
@@ -372,9 +389,13 @@ class CompiledQuery:
             lambda rank, group, inp: self._walk(inp, devs[rank], group, rank),
             per)
 
-    def _walk(self, inputs: dict, device, group=None, rank: int = 0):
+    def _walk(self, inputs: dict, device, group=None, rank: int = 0,
+              token=None):
+        """One staged walk on `device`; a sharded one as shard `rank` of
+        `group`.  `token`: in a batched walk, a tensor vmap batches, which
+        the collectives take (`TorchBackend`)."""
         ctx = StageCtx(self.db, self.settings,
-                       TorchBackend(device, group, rank),
+                       TorchBackend(device, group, rank, token),
                        lambda key, make: inputs[key],
                        self.param_defaults, device=device, staged=True,
                        **self._mesh_ctx())
@@ -486,6 +507,20 @@ class CompiledQuery:
             else whole_to_host
         return _decode_frame(*copy(out, mask), self.out_meta)
 
+    def _account(self, counts: list[dict], executions: int) -> list[int]:
+        """Observe the point counts of the bindings of `executions`
+        staged walks (`counts`: one dict a binding, on the host) and
+        return the bindings whose capacity bucket overflowed.  Under a
+        mesh the per-shard vectors are kept in `observed_shard`, and the
+        rest keys off the worst shard."""
+        if self.n_shards > 1:
+            self._observe_shards(counts)
+            counts = [{pid: int(v.max()) for pid, v in c.items()}
+                      for c in counts]
+        bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
+        self._observe(counts, len(bad), executions)
+        return bad
+
     def _settle(self, bindings_list: list, runs: list,
                 counts: list[dict]) -> list[dict[str, np.ndarray]]:
         """The results of `runs`, this query's staged walks under
@@ -494,14 +529,8 @@ class CompiledQuery:
         overflowed re-runs uncompacted through the twin (its compacted
         frames dropped rows; the twin's probes report every site's TRUE
         count, folded back for the feedback store), and the rest are
-        decoded.  Under a mesh the per-shard vectors are kept in
-        `observed_shard`, and the rest keys off the worst shard."""
-        if self.n_shards > 1:
-            self._observe_shards(counts)
-            counts = [{pid: int(v.max()) for pid, v in c.items()}
-                      for c in counts]
-        bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
-        self._observe(counts, len(bad), len(runs))
+        decoded."""
+        bad = self._account(counts, len(runs))
         results = [None if i in bad else self._result(out, mask)
                    for i, (out, mask, _c) in enumerate(runs)]
         return self._rerun(bindings_list, bad, results)
@@ -536,8 +565,9 @@ class CompiledQuery:
         """N bindings as batched passes (the module docstring): each pass
         one staged walk under vmap of at most BATCH_MAX bindings (the
         passes of one call differ in size by one at most), its
-        (N,) point counts read in one copy, then each slot decoded; below
-        BATCH_MIN bindings, and on a mesh, one scalar walk a binding.
+        (N,) point counts ((N, n_shards) on a mesh) read in one copy,
+        then each slot decoded; below BATCH_MIN bindings, one scalar walk
+        a binding.
         Returns one result per binding, in order, each equal to
         `run(bindings_list[i])`; a None binding means the construction-
         time bindings.  Only overflowing slots re-run, through the twin.
@@ -551,7 +581,7 @@ class CompiledQuery:
             res = self.run(bindings_list[0])
             return [res] + [{k: np.copy(v) for k, v in res.items()}
                             for _ in bindings_list[1:]]
-        if self._mesh is not None or len(merged) < BATCH_MIN:
+        if len(merged) < BATCH_MIN:
             return self._walks(bindings_list)
         # passes of at most BATCH_MAX bindings, of equal size within one
         # (so none falls below BATCH_MIN)
@@ -566,9 +596,8 @@ class CompiledQuery:
         """The bindings as ONE batched pass, whatever their number (the
         pass `run_many` takes from BATCH_MIN bindings on)."""
         bindings_list = list(bindings_list)
-        if not self.param_spec or self._mesh is not None:
-            raise ValueError("a batched pass needs runtime parameters and "
-                             "no mesh")
+        if not self.param_spec:
+            raise ValueError("a batched pass needs runtime parameters")
         return self._pass(bindings_list,
                           [self._check_bindings(b) for b in bindings_list])
 
@@ -577,9 +606,8 @@ class CompiledQuery:
         values), settled: the slots that overflowed re-run through the
         twin."""
         out, mask, counts = self.execute_many(self.bind_many(merged))
-        slot_counts = self._batch_counts_to_host(counts, len(merged))
-        bad = [i for i, c in enumerate(slot_counts) if self._overflowed(c)]
-        self._observe(slot_counts, len(bad), 1)
+        bad = self._account(self._batch_counts_to_host(counts, len(merged)),
+                            1)
         good = sorted(set(range(len(merged))) - set(bad))
         results: list = [None] * len(merged)
         for i, r in zip(good, self._results_many(out, mask, good)):
@@ -609,22 +637,52 @@ class CompiledQuery:
         """The batched staged walk over `bind_many`'s parameter vectors:
         (columns, mask, per-point counts), each with the N bindings in
         front, on the device, nothing synchronized.  The resident inputs
-        are closed over, so vmap maps the parameters alone."""
-        resident = self.resident
-        return torch.func.vmap(
-            lambda p: self._walk({**resident, **p}, self.device),
-            randomness="error")(pvec)
+        are closed over, so vmap maps the parameters alone.  Under a
+        mesh: shard 0's columns and mask (every shard's are the same) and
+        each point's counts as an `(N, n_shards)` tensor."""
+        if self._mesh is None:
+            resident = self.resident
+            return torch.func.vmap(
+                lambda p: self._walk({**resident, **p}, self.device),
+                randomness="error")(pvec)
+        shards = self.execute_shards_many(pvec)
+        out, mask, counts = shards[0]
+        dev = self._mesh.devices[0]
+        return out, mask, {
+            pid: torch.stack([torch.as_tensor(s[2][pid], device=dev)
+                              for s in shards], 1)
+            for pid in counts}
+
+    def execute_shards_many(self, pvec: dict) -> list:
+        """The sharded batched walk: every shard's (columns, mask,
+        counts), each with the N bindings in front, in rank order.  Each
+        shard runs one staged walk under vmap in its thread, over its own
+        resident blocks and `bind_many`'s parameter vectors (copied once
+        to each other device of the mesh); its collectives take the
+        first parameter as their token (`TorchBackend`)."""
+        devs = self._mesh.devices
+        on = {d: {k: v.to(d) for k, v in pvec.items()} for d in set(devs)}
+
+        def shard(rank, group, blocks):
+            dev = devs[rank]
+            return torch.func.vmap(
+                lambda p: self._walk({**blocks, **p}, dev, group, rank,
+                                     next(iter(p.values()))),
+                randomness="error")(on[dev])
+        return self._mesh.run(shard, self.shard_resident)
 
     def _batch_counts_to_host(self, counts: dict, n: int) -> list[dict]:
         """Every slot's point counts from the batched walk's (N,) vectors
-        in ONE device-to-host copy."""
+        ((N, n_shards) under a mesh) in ONE device-to-host copy: Python
+        ints, or under a mesh `(n_shards,)` int64 arrays."""
         if not counts:
             return [{} for _ in range(n)]
+        k = self.n_shards
         vals = torch.stack([torch.as_tensor(c, device=self.device)
-                            .reshape(n).to(torch.int64)
+                            .reshape(n, k).to(torch.int64)
                             for c in counts.values()]).cpu().numpy()
-        return [{pid: int(vals[k, i]) for k, pid in enumerate(counts)}
-                for i in range(n)]
+        return [{pid: vals[j, i] if k > 1 else int(vals[j, i, 0])
+                 for j, pid in enumerate(counts)} for i in range(n)]
 
     def _results_many(self, out: dict, mask, slots: list[int]) -> list:
         """The decoded results of the batched walk's `slots`.  A frame
@@ -647,23 +705,36 @@ class CompiledQueryBatch:
     """Several plans run as one unit: every staged walk is enqueued back
     to back, the point counts of all of them are read in one copy, and
     each result is decoded.  `run()` returns the per-query results of
-    `CompiledQuery.run()`, in order.  (The reference stages the plans
-    into one XLA program, whose compiler can share their common loads;
-    eager torch has no such scope, so each query keeps its own resident
-    inputs.)"""
+    `CompiledQuery.run()`, in order.  The members hold one set of
+    resident inputs: an input key the plans share (lineitem's columns
+    for q1 and q6) is copied to the device once, and `inputs` is the
+    merged host dict, as the reference's (whose one XLA program shares
+    the loads).  Unlike the reference, which trusts the key, the batch
+    checks that the plans' host arrays under a shared key are
+    byte-identical."""
 
     def __init__(self, plans, db: Database, settings: Settings,
                  device=None):
         if resolve_shards(settings, resolve_device(device)) != 1:
             # each member would need its own mesh run and its own
-            # partitioned blocks; nothing is shared across members either
-            # way, so the combination is rejected rather than
-            # half-supported
+            # partitioned blocks, as in the reference, which rejects the
+            # combination rather than half-supporting it
             raise NotImplementedError(
                 "CompiledQueryBatch does not compose with sharded "
                 "execution (Settings.shards != 1)")
-        self.queries = [CompiledQuery(p, db, settings, device=device)
-                        for p in plans]
+        pool: dict = {}
+        self.queries = []
+        self.inputs: dict[str, np.ndarray] = {}
+        for p in plans:
+            q = CompiledQuery(p, db, settings, device=device, pool=pool)
+            for k, v in q.inputs.items():
+                have = self.inputs.get(k)
+                if have is not None and not k.startswith("param/") \
+                        and have is not v and not _same_bytes(have, v):
+                    raise ValueError(f"input {k!r} differs between the "
+                                     "batch's plans")
+                self.inputs[k] = v
+            self.queries.append(q)
 
     def run(self) -> list[dict[str, np.ndarray]]:
         runs = [q.execute(q.bind()) for q in self.queries]
@@ -673,7 +744,12 @@ class CompiledQueryBatch:
                 for q, r, c in zip(self.queries, runs, counts)]
 
     def input_nbytes(self) -> int:
-        return sum(q.input_nbytes() for q in self.queries)
+        return int(sum(v.nbytes for v in self.inputs.values()))
+
+
+def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
 
 
 def valid_rows_to_host(out, mask):

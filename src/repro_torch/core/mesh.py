@@ -26,6 +26,7 @@ the CPU.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 
 import torch
@@ -39,6 +40,11 @@ _BARRIER_TIMEOUT_S = 600.0
 _VIRTUAL: dict[str, tuple[torch.device, int]] = {}
 _MESHES: dict[tuple, "DataMesh"] = {}
 _LOCK = threading.Lock()
+# the open shard groups by handle: a custom operator takes an int, not a
+# group (`backend.py`'s batched collectives)
+_GROUPS: dict[int, "ShardGroup"] = {}
+_HANDLES = itertools.count()
+_is_batched = torch._C._functorch.is_batchedtensor
 
 
 def _device(device=None) -> torch.device:
@@ -106,17 +112,32 @@ def data_mesh(n: int, device=None) -> "DataMesh":
     return got
 
 
+def group_of(handle: int) -> "ShardGroup":
+    """The open shard group of a handle (`ShardGroup.handle`)."""
+    with _LOCK:
+        return _GROUPS[handle]
+
+
 class ShardGroup:
     """One run's rendezvous: every collective deposits the shard's tensor
     in its slot, waits for all, reads every slot, and waits again before
     a slot may be overwritten.  A shard that fails aborts the barrier, so
-    the others raise `BrokenBarrierError` instead of waiting forever."""
+    the others raise `BrokenBarrierError` instead of waiting forever.
+    Open between `DataMesh.run`'s start and end, under `handle`."""
 
     def __init__(self, devices):
         self.devices = list(devices)
         self.n = len(self.devices)
         self.slots: list = [None] * self.n
+        self.batched: list = [False] * self.n
         self.barrier = threading.Barrier(self.n, timeout=_BARRIER_TIMEOUT_S)
+        with _LOCK:
+            self.handle = next(_HANDLES)
+            _GROUPS[self.handle] = self
+
+    def close(self) -> None:
+        with _LOCK:
+            _GROUPS.pop(self.handle, None)
 
     def exchange(self, rank: int, x) -> list:
         """Every shard's `x`, in rank order, each on this shard's device.
@@ -124,12 +145,22 @@ class ShardGroup:
         the source card, which `DataMesh.run` sets to the caller's stream
         there: the stream the producer's kernels were queued on, so the
         copy is ordered after them."""
+        return self.exchange_batched(rank, x, False)[0]
+
+    def exchange_batched(self, rank: int, x, batched: bool) -> tuple:
+        """`exchange` of a batched walk's value: `x` a plain tensor with
+        the bindings in front where `batched`.  Returns every shard's
+        value and flag, in rank order."""
+        if _is_batched(x):
+            raise TypeError("a shard group slot takes a plain tensor, not "
+                            "a vmapped one: unwrap the binding axis first")
         self.slots[rank] = x
+        self.batched[rank] = batched
         self.barrier.wait()
-        vals = list(self.slots)
+        vals, flags = list(self.slots), list(self.batched)
         self.barrier.wait()
         dev = self.devices[rank]
-        return [v if v.device == dev else v.to(dev) for v in vals]
+        return [v if v.device == dev else v.to(dev) for v in vals], flags
 
     def abort(self) -> None:
         self.barrier.abort()
@@ -176,10 +207,13 @@ class DataMesh:
         threads = [threading.Thread(target=work, args=(r,),
                                     name=f"repro-shard-{r}", daemon=True)
                    for r in range(self.n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            group.close()
         failed = [e for e in errors if e is not None]
         if failed:
             own = [e for e in failed

@@ -286,14 +286,22 @@ def test_execute_many_accounting_like_the_reference(sides):
 
 
 def test_compiled_query_batch_equals_single_runs(pdb, sides):
+    """Each member's answer is its own `run()`'s and the reference's;
+    the members share their inputs as the reference's batch does: its
+    merged host dict and bytes are the reference's, fewer keys than the
+    members hold in all."""
     ref, _port = sides
     batch = CompiledQueryBatch([QUERIES[q]() for q in ("q1", "q3", "q6")],
                                pdb, preset("opt-pallas"), device="cpu")
     for q, got, cq in zip(("q1", "q3", "q6"), batch.run(), batch.queries):
         assert_identical(got, cq.run())
         assert_matches(got, ref.oracle.execute(ref.queries[q]()))
-    assert batch.input_nbytes() == sum(q.input_nbytes()
-                                       for q in batch.queries)
+    ref_batch = ref.compile_mod.CompiledQueryBatch(
+        [ref.queries[q]() for q in ("q1", "q3", "q6")], ref.db,
+        ref.preset("opt-pallas"))
+    assert batch.input_nbytes() == ref_batch.input_nbytes()
+    assert set(batch.inputs) == set(ref_batch.inputs)
+    assert len(batch.inputs) < sum(len(q.inputs) for q in batch.queries)
 
 
 # ---------------------------------------------------------------------------

@@ -812,6 +812,38 @@ def test_sharded_query_on_card_matches_unsharded(cuda, sdb, two_slots,
         assert torch.equal(out0[k], out1[k].to(out0[k].device)), k
 
 
+@pytest.mark.parametrize("qname", ["q3", "q6", "q12", "q19"])
+def test_sharded_run_many_on_card_is_one_pass(cuda, sdb, two_slots, qname):
+    """A 2-shard `run_many` of 5 bindings on the card (sf 0.05): one
+    execution, every slot its sharded `run()`'s answer, the shards' batched
+    outputs the same bits, each point's counts (5, 2)."""
+    import dataclasses
+
+    from repro_torch.core import PlanCache
+    from repro_torch.relational.queries import (PARAM_ALT_BINDINGS,
+                                                PARAM_QUERIES)
+
+    build, d = PARAM_QUERIES[qname]
+    cache = PlanCache(sdb)
+    cq, rt = cache.get(build(), dataclasses.replace(
+        preset("opt-pallas"), shards=2), d)
+    alt = dict(rt, **{k: v for k, v in PARAM_ALT_BINDINGS[qname].items()
+                      if k in rt})
+    bl = [rt, alt, rt, alt, rt]
+    got = cq.run_many(bl)
+    assert cq.n_executions == 1 and cq.n_overflows == 0
+    for g, b in zip(got, bl):
+        assert_same(g, cq.run(b), qname in SORT_INSENSITIVE)
+    (out0, mask0, c0), (out1, mask1, _) = cq.execute_shards_many(
+        cq.bind_many(bl))
+    assert torch.equal(mask0, mask1.to(mask0.device))
+    for k in out0:
+        assert torch.equal(out0[k], out1[k].to(out0[k].device)), k
+    for pid, c in cq.execute_many(cq.bind_many(bl))[2].items():
+        assert tuple(c.shape) == (5, 2), pid
+    cache.close()
+
+
 # ---------------------------------------------------------------------------
 # the language-model serving path: each family on the card against the CPU
 # ---------------------------------------------------------------------------

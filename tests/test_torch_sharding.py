@@ -250,17 +250,18 @@ def test_optimize_resolves_shards_on_its_device(pdb):
 @pytest.mark.parametrize("qname", ["q3", "q12"])
 def test_mesh_of_several_devices_copies_blocks(pdb, qname):
     """A mesh of distinct devices (`cpu` and `cpu:0`, which torch holds
-    unequal) takes the several-device branches: every partitioned input
-    is a copy of its own per shard (not a view of one tensor), and the
-    collectives move each peer's tensor with `.to(device)`.  The answer
-    is the one-device mesh's, bit for bit."""
+    unequal) takes the several-device branches: the collectives move
+    each peer's tensor with `.to(device)`.  Every partitioned input is a
+    copy of its own per shard on either mesh (not a view of one tensor,
+    whose block 1 could start off a 16-byte boundary).  The answer is
+    the one-device mesh's, bit for bit."""
     cq = CompiledQuery(QUERIES[qname](), pdb, sharded("opt-pallas", 2),
                        device="cpu")
     want = cq.run()
     key = sorted(cq.sharded_keys)[0]
     one = cq.shard_resident
     assert one[0][key].untyped_storage().data_ptr() \
-        == one[1][key].untyped_storage().data_ptr()
+        != one[1][key].untyped_storage().data_ptr()
     cq._mesh = mesh.DataMesh([torch.device("cpu"), torch.device("cpu", 0)])
     cq.shard_resident = cq._shard_blocks()
     two = cq.shard_resident
