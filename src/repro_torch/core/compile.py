@@ -91,6 +91,7 @@ from repro_torch.core.mesh import AXIS, data_mesh, resolve_shards
 from repro_torch.core.operators import StageCtx, frame_nrows
 from repro_torch.core.passes.param_binding import plan_params
 from repro_torch.core.passes.pipeline import Settings, optimize
+from repro_torch.core.spans import span
 from repro_torch.relational.loader import Database
 
 _SAMPLE = 8
@@ -394,16 +395,17 @@ class CompiledQuery:
         """One staged walk on `device`; a sharded one as shard `rank` of
         `group`.  `token`: in a batched walk, a tensor vmap batches, which
         the collectives take (`TorchBackend`)."""
-        ctx = StageCtx(self.db, self.settings,
-                       TorchBackend(device, group, rank, token),
-                       lambda key, make: inputs[key],
-                       self.param_defaults, device=device, staged=True,
-                       **self._mesh_ctx())
-        frame = ctx.stage(self.plan)
-        out = {name: b.arr for name, b in frame.cols.items()}
-        mask = frame.mask if frame.mask is not None \
-            else ctx.ones(frame_nrows(frame))
-        return out, mask, dict(ctx.compact_counts)
+        with span("repro.walk"):
+            ctx = StageCtx(self.db, self.settings,
+                           TorchBackend(device, group, rank, token),
+                           lambda key, make: inputs[key],
+                           self.param_defaults, device=device, staged=True,
+                           **self._mesh_ctx())
+            frame = ctx.stage(self.plan)
+            out = {name: b.arr for name, b in frame.cols.items()}
+            mask = frame.mask if frame.mask is not None \
+                else ctx.ones(frame_nrows(frame))
+            return out, mask, dict(ctx.compact_counts)
 
     def _fallback_query(self) -> "CompiledQuery":
         """The uncompacted twin: same logical plan, no truncating points,
@@ -481,7 +483,8 @@ class CompiledQuery:
                 .to(torch.int64) for counts in runs for c in counts.values()]
         if not flat:
             return [{} for _ in runs]
-        vals = torch.cat(flat).cpu().numpy()
+        with span("repro.counts"):
+            vals = torch.cat(flat).cpu().numpy()
         k, at, out = self.n_shards, 0, []
         for counts in runs:
             got = {}
@@ -505,7 +508,9 @@ class CompiledQuery:
     def _result(self, out, mask) -> dict[str, np.ndarray]:
         copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
             else whole_to_host
-        return _decode_frame(*copy(out, mask), self.out_meta)
+        with span("repro.result.copy"):
+            host = copy(out, mask)
+        return _decode_frame(*host, self.out_meta)
 
     def _account(self, counts: list[dict], executions: int) -> list[int]:
         """Observe the point counts of the bindings of `executions`
@@ -542,8 +547,9 @@ class CompiledQuery:
         rows; the twin's probes report every site's TRUE count, folded
         back for the feedback store)."""
         if bad:
-            twin = self._fallback_query()
-            redo = twin.run_many([bindings_list[i] for i in bad])
+            with span("repro.rerun"):
+                twin = self._fallback_query()
+                redo = twin.run_many([bindings_list[i] for i in bad])
             self._merge_twin_observations(twin)
             for i, r in zip(bad, redo):
                 results[i] = r
@@ -678,9 +684,10 @@ class CompiledQuery:
         if not counts:
             return [{} for _ in range(n)]
         k = self.n_shards
-        vals = torch.stack([torch.as_tensor(c, device=self.device)
-                            .reshape(n, k).to(torch.int64)
-                            for c in counts.values()]).cpu().numpy()
+        with span("repro.counts"):
+            vals = torch.stack([torch.as_tensor(c, device=self.device)
+                                .reshape(n, k).to(torch.int64)
+                                for c in counts.values()]).cpu().numpy()
         return [{pid: vals[j, i] if k > 1 else int(vals[j, i, 0])
                  for j, pid in enumerate(counts)} for i in range(n)]
 
@@ -693,7 +700,8 @@ class CompiledQuery:
         if mask.shape[1] > DEVICE_SELECT_ROWS:
             return [self._result({k: v[i] for k, v in out.items()}, mask[i])
                     for i in slots]
-        host, hmask = whole_to_host(out, mask)
+        with span("repro.result.copy"):
+            host, hmask = whole_to_host(out, mask)
         return [_decode_frame({k: v[i] for k, v in host.items()}, hmask[i],
                               self.out_meta) for i in slots]
 
@@ -766,26 +774,23 @@ def whole_to_host(out, mask):
 
 
 def _decode_frame(out, mask, out_meta) -> dict[str, np.ndarray]:
-    res = {}
-    for name, kind, table, colname in out_meta:
-        v = out[name][mask]
-        if kind == "codes":
-            res[name] = table.vocabs[colname][np.clip(v, 0, None)].astype(str)
-        elif kind == "chars":
-            w = v.shape[1]
-            b = np.ascontiguousarray(v).view(f"S{w}")[:, 0]
-            res[name] = np.char.decode(
-                np.char.rstrip(b, b"\x00"), "ascii").astype(str)
-        elif kind == "words":
-            vocab = table.word_vocabs[colname]
-            res[name] = np.array(
-                [" ".join(str(vocab[c]) for c in row if c >= 0)
-                 for row in v])
-        elif kind == "wordchars":
-            w = v.shape[1]
-            b = np.ascontiguousarray(v).view(f"S{w}")[:, 0]
-            res[name] = np.char.decode(
-                np.char.rstrip(b, b"\x00"), "ascii").astype(str)
-        else:
-            res[name] = v
-    return res
+    with span("repro.result.decode"):
+        res = {}
+        for name, kind, table, colname in out_meta:
+            v = out[name][mask]
+            if kind == "codes":
+                vocab = table.vocabs[colname]
+                res[name] = vocab[np.clip(v, 0, None)].astype(str)
+            elif kind in ("chars", "wordchars"):
+                w = v.shape[1]
+                b = np.ascontiguousarray(v).view(f"S{w}")[:, 0]
+                res[name] = np.char.decode(
+                    np.char.rstrip(b, b"\x00"), "ascii").astype(str)
+            elif kind == "words":
+                vocab = table.word_vocabs[colname]
+                res[name] = np.array(
+                    [" ".join(str(vocab[c]) for c in row if c >= 0)
+                     for row in v])
+            else:
+                res[name] = v
+        return res

@@ -10,6 +10,7 @@ from repro_torch.core.operators import (agg, compact, exchange, join, limit,
                                         project, scan, select, sort)
 from repro_torch.core.operators.base import (Binding, Frame, FrameEnv,
                                              StageCtx, frame_nrows)
+from repro_torch.core.spans import span
 
 _DISPATCH = {
     ir.Scan: scan.stage,
@@ -22,13 +23,16 @@ _DISPATCH = {
     ir.Sort: sort.stage,
     ir.Limit: limit.stage,
 }
+# one span name an operator, not one a plan node (`core/spans.py`)
+_SPAN = {t: f"repro.op.{t.__name__}" for t in _DISPATCH}
 
 
 def stage(node: ir.Plan, ctx: StageCtx, defer: bool = False) -> Frame:
     fn = _DISPATCH.get(type(node))
     if fn is None:
         raise TypeError(type(node))
-    return fn(node, ctx, defer)
+    with span(_SPAN[type(node)]):
+        return fn(node, ctx, defer)
 
 
 __all__ = ["Binding", "Frame", "FrameEnv", "StageCtx", "frame_nrows",
