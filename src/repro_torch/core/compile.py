@@ -49,6 +49,16 @@ power-of-two bucket so that it retraces at most log2(N) times, eager
 torch has no trace to amortise, so nothing is padded (`pads_batches =
 False`).  `run` keeps the scalar walk, its parameters host scalars.
 
+CUDA graph replay: on CUDA, `compile()` captures an unsharded query's
+scalar walk as CUDA graphs cut at the engine's entry points
+(`core/graphs.py`), and `run` (and `run_many` below BATCH_MIN, one
+binding at a time) replays them: one parameter copy, the segments, and
+between them the entry points called eagerly with the binding's host
+scalars.  Replay holds a lock from the parameter copy until the result is
+on the host; a run that finds it held takes the eager walk, as do the
+batched passes, sharded queries, `CompiledQueryBatch`, the overflow twin
+and the CPU.
+
 Sharded execution (`Settings.shards != 1`): the Sharding pass partitions
 the partition root and the tables routed to it over a 1-D data mesh
 (`core/mesh.py`); the collection walk registers their partitioned
@@ -84,7 +94,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import graphs, ir
 from repro_torch.core.backend import TorchBackend
 from repro_torch.core.expr import Param
 from repro_torch.core.mesh import AXIS, data_mesh, resolve_shards
@@ -204,6 +214,14 @@ class CompiledQuery:
         self.n_overflows = 0      # executions (or batch slots) that fell back
         # staged walks run by run() / run_many(): one a batched pass
         self.n_executions = 0
+        # the scalar walk captured as CUDA graphs by compile() (unsharded,
+        # on CUDA; `core/graphs.py`), the runs that replayed it, and why
+        # its capture raised where it did.  One replay at a time: a run
+        # that finds the lock held takes the eager walk
+        self._graph: Optional[graphs.WalkGraph] = None
+        self._replay_lock = threading.Lock()
+        self.n_replays = 0
+        self.capture_error: Optional[str] = None
         # feedback state, harvested by PlanCache: the all-time max true
         # count per point, and the current run of consecutive executions
         # with every point under a quarter of its capacity, with its
@@ -329,16 +347,31 @@ class CompiledQuery:
         parameters, one batched pass of them (the batched instances of
         `run_many`), then wait for the device.  A plan's first run at
         `opt-pallas` otherwise pays `nvcc` for each generated predicate
-        it has not met yet.  The walks are not executions: nothing is
-        observed or counted.  Returns (and keeps as `compile_time`) its
-        seconds."""
+        it has not met yet.  An unsharded query on CUDA then captures its
+        scalar walk as CUDA graphs, which `run` replays (`core/graphs.py`);
+        a capture that raises leaves the query on the eager walk.  The
+        walks are not executions: nothing is observed or counted.
+        Returns (and keeps as `compile_time`) its seconds."""
         t0 = time.perf_counter()
         self.execute(self.bind())
         if self.param_spec:
             self.execute_many(self.bind_many([self.param_defaults]))
         self._synchronize()
+        if self._mesh is None and self.device.type == "cuda" \
+                and self._graph is None and self.capture_error is None:
+            try:
+                self._graph = graphs.capture(self)
+            except Exception as e:      # noqa: BLE001 - counted and logged
+                self.capture_error = f"{type(e).__name__}: {e}"
+                graphs.failed(e)
         self.compile_time = time.perf_counter() - t0
         return self.compile_time
+
+    @property
+    def graph_segments(self) -> int:
+        """The segments the captured walk was cut into, one more than its
+        entry-point calls (0: not captured)."""
+        return len(self._graph.segments) if self._graph is not None else 0
 
     # -- parameter binding -----------------------------------------------------
     def bind(self, params: Optional[dict] = None) -> dict:
@@ -391,16 +424,17 @@ class CompiledQuery:
             per)
 
     def _walk(self, inputs: dict, device, group=None, rank: int = 0,
-              token=None):
+              token=None, engine=None):
         """One staged walk on `device`; a sharded one as shard `rank` of
         `group`.  `token`: in a batched walk, a tensor vmap batches, which
-        the collectives take (`TorchBackend`)."""
+        the collectives take (`TorchBackend`).  `engine`: the capture's
+        hook on the engine entry points (`StageCtx.engine`)."""
         with span("repro.walk"):
             ctx = StageCtx(self.db, self.settings,
                            TorchBackend(device, group, rank, token),
                            lambda key, make: inputs[key],
                            self.param_defaults, device=device, staged=True,
-                           **self._mesh_ctx())
+                           engine=engine, **self._mesh_ctx())
             frame = ctx.stage(self.plan)
             out = {name: b.arr for name, b in frame.cols.items()}
             mask = frame.mask if frame.mask is not None \
@@ -506,11 +540,7 @@ class CompiledQuery:
                         v.copy() if old is None else np.maximum(old, v)
 
     def _result(self, out, mask) -> dict[str, np.ndarray]:
-        copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
-            else whole_to_host
-        with span("repro.result.copy"):
-            host = copy(out, mask)
-        return _decode_frame(*host, self.out_meta)
+        return _decode_frame(*_to_host(out, mask), self.out_meta)
 
     def _account(self, counts: list[dict], executions: int) -> list[int]:
         """Observe the point counts of the bindings of `executions`
@@ -557,15 +587,35 @@ class CompiledQuery:
 
     def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
         """One binding through the scalar staged walk (parameters as host
-        scalars)."""
+        scalars), replayed where `compile()` captured it."""
         return self._walks([params])[0]
 
     def _walks(self, bindings_list: list) -> list[dict[str, np.ndarray]]:
         """One scalar staged walk a binding, enqueued back to back, their
-        point counts read in one copy, then settled."""
+        point counts read in one copy, then settled.  A lone binding
+        replays the captured walk where there is one and no other run is
+        replaying it."""
+        if len(bindings_list) == 1 and self._graph is not None \
+                and self._replay_lock.acquire(blocking=False):
+            return [self._replayed(bindings_list[0])]
         runs = [self.execute(self.bind(b)) for b in bindings_list]
         return self._settle(bindings_list, runs, self._counts_to_host(
             [c for *_f, c in runs]))
+
+    def _replayed(self, params: Optional[dict]) -> dict[str, np.ndarray]:
+        """`run(params)` through the captured walk.  The caller holds
+        `_replay_lock`; it is released once the counts and the result are
+        on the host, since the next replay writes the same tensors."""
+        try:
+            out, mask, counts = self._graph.replay(
+                self._check_bindings(params))
+            self.n_replays += 1
+            bad = self._account(self._counts_to_host([counts]), 1)
+            host = None if bad else _to_host(out, mask)
+        finally:
+            self._replay_lock.release()
+        result = None if bad else _decode_frame(*host, self.out_meta)
+        return self._rerun([params], bad, [result])[0]
 
     def run_many(self, bindings_list) -> list[dict[str, np.ndarray]]:
         """N bindings as batched passes (the module docstring): each pass
@@ -758,6 +808,15 @@ class CompiledQueryBatch:
 def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape \
         and a.tobytes() == b.tobytes()
+
+
+def _to_host(out, mask):
+    """The result's columns and mask on the host: cut to the valid rows on
+    the device where the frame is large (`DEVICE_SELECT_ROWS`)."""
+    copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
+        else whole_to_host
+    with span("repro.result.copy"):
+        return copy(out, mask)
 
 
 def valid_rows_to_host(out, mask):

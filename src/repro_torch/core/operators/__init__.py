@@ -31,8 +31,13 @@ def stage(node: ir.Plan, ctx: StageCtx, defer: bool = False) -> Frame:
     fn = _DISPATCH.get(type(node))
     if fn is None:
         raise TypeError(type(node))
-    with span(_SPAN[type(node)]):
-        return fn(node, ctx, defer)
+    name, outer = _SPAN[type(node)], ctx.op_span
+    ctx.op_span = name
+    try:
+        with span(name):
+            return fn(node, ctx, defer)
+    finally:
+        ctx.op_span = outer
 
 
 __all__ = ["Binding", "Frame", "FrameEnv", "StageCtx", "frame_nrows",

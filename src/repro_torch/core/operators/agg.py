@@ -76,8 +76,6 @@ def _fused_stage(a: ir.Agg, f: Frame, pred, ctx: StageCtx):
     """Stage the q6/q19-class selective pipeline: predicate + grouped
     aggregation in ONE kernel pass, no mask ever materialized.  Returns
     None when operand collection fails (caller falls back)."""
-    from repro_torch.kernels import ops as kops
-
     names = [sp.name for sp in a.aggs if sp.expr is not None]
     val_exprs = [sp.expr for sp in a.aggs if sp.expr is not None]
     operands = fu.collect_operands(f, [pred] + val_exprs,
@@ -90,8 +88,8 @@ def _fused_stage(a: ir.Agg, f: Frame, pred, ctx: StageCtx):
     if a.group_by:                        # dense: mixed-radix in-kernel
         n_groups = _dense_domain(a)
         gidx_fn = fu.GroupIndex(_radix(a), n_groups)
-    sums_m, cnt, _total = kops.selective_agg_query(
-        cols_d, scalars, fu.TileFn(pred, pnames),
+    sums_m, cnt, _total = ctx.kernel(
+        "selective_agg_query", cols_d, scalars, fu.TileFn(pred, pnames),
         [fu.TileFn(e, pnames) for e in val_exprs], gidx_fn, n_groups)
     if f.part is not None:
         sums_m = ctx.backend.psum(sums_m, ctx.axis)
@@ -161,13 +159,11 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
                 and all(getattr(v, "ndim", 0) == 1 for v in vals.values()))
 
     def _kernel_agg(gidx, D):
-        from repro_torch.kernels import ops as kops
-
         names = [s_.name for s_ in a.aggs if s_.expr is not None]
         # the kernel reads contiguous value columns: a bare column of a
         # row-layout record matrix is copied out here, in the query's time
-        sums_m, cnt = kops.filter_agg_query(
-            mask, gidx,
+        sums_m, cnt = ctx.kernel(
+            "filter_agg_query", mask, gidx,
             [vals[nm].to(torch.float32).contiguous() for nm in names], D)
         if f.part is not None:
             sums_m = be.psum(sums_m, ctx.axis)

@@ -103,6 +103,12 @@ class StageCtx:
     n_shards: int = 1
     shard_plan: Any = None
     sharded_keys: set = dataclasses.field(default_factory=set)
+    # the engine entry points' caller (`kernel`): None calls them as
+    # attributes of `kernels.ops`; a CUDA graph capture hands its
+    # recorder, which cuts the walk at each call (`core/graphs.py`)
+    engine: Optional[Callable] = None
+    # the span of the operator being staged (`operators.stage`)
+    op_span: str = ""
 
     @property
     def use_kernels(self) -> bool:
@@ -145,6 +151,15 @@ class StageCtx:
         if isinstance(v, torch.Tensor):
             return v
         return v.item() if hasattr(v, "item") else v
+
+    def kernel(self, name: str, *args, **kwargs):
+        """Call the engine entry point `name` of `kernels.ops`, through
+        the module's attribute at call time (or through `engine`)."""
+        if self.engine is not None:
+            return self.engine(self.op_span, name, args, kwargs)
+        from repro_torch.kernels import ops
+
+        return getattr(ops, name)(*args, **kwargs)
 
     def note_compact(self, point_id: str, count) -> None:
         """Register a compaction point's true valid count.  The count is

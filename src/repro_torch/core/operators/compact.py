@@ -81,21 +81,17 @@ def stage(c: ir.Compact, ctx: StageCtx, defer: bool = False) -> Frame:
             pred = None
     slot = None
     if pred is not None:
-        from repro_torch.kernels import ops as kops
-
         cols_d, scalars, pnames = operands
-        res = kops.compact_pred_query(
-            cols_d, scalars, fu.TileFn(pred, pnames), cap,
-            translate=c.translate)
+        res = ctx.kernel("compact_pred_query", cols_d, scalars,
+                         fu.TileFn(pred, pnames), cap, translate=c.translate)
         idx, count = res[0], res[1]
         if c.translate:
             slot = res[2]
     else:
         mask = f.mask if f.mask is not None else ctx.ones(n)
         if use_k:
-            from repro_torch.kernels import ops as kops
-
-            res = kops.compact_query(mask, cap, translate=c.translate)
+            res = ctx.kernel("compact_query", mask, cap,
+                             translate=c.translate)
             idx, count = res[0], res[1]
             if c.translate:
                 slot = res[2]

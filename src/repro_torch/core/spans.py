@@ -11,7 +11,10 @@ switch, buffer or clock here: the profiler is the recorder.
 
 The names (`repro.` and then the layer):
 
-  repro.walk             the staged walk's enqueue (`CompiledQuery._walk`)
+  repro.replay           a replay of the walk captured as CUDA graphs
+                         (`core/graphs.py`), around its `repro.walk`
+  repro.walk             the staged walk's enqueue (`CompiledQuery._walk`),
+                         or its replay's
   repro.op.<Node>        one operator's staging, nested as the plan is
   repro.counts           the one blocking read of the compaction counts
   repro.result.copy      the answer's device-to-host copy
