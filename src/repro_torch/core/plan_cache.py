@@ -151,6 +151,16 @@ class _LadderState:
                               key=lambda n: tiering.tier(n).rank)]
 
 
+class Prepared(tuple):
+    """`PlanCache._prepare`'s (key, plan, runtime bindings, plan_owned);
+    `memo_hit` is True where the shape memo answered the request."""
+
+    def __new__(cls, items, memo_hit: bool = False):
+        self = super().__new__(cls, items)
+        self.memo_hit = memo_hit
+        return self
+
+
 class PlanCache:
     def __init__(self, db, max_entries: int = 128, *,
                  tiered: bool = False, promote_through: bool = False,
@@ -178,6 +188,10 @@ class PlanCache:
         self._overflow_seen: "weakref.WeakKeyDictionary[CompiledQuery, int]" \
             = weakref.WeakKeyDictionary()
         self._caps_memo: dict[tuple, tuple] = {}
+        # `_prepare`'s memos, keyed on the plan object's id: each value
+        # holds the plan, so an id stays its plan's while the entry lives
+        self._shapes: dict[tuple, tuple] = {}
+        self._prepared: dict[tuple, tuple] = {}
         # per-plan-shape feedback: observed counts, override state, and
         # the initial-estimate bindings.  Keyed by the key base, which
         # includes db.fingerprint — a reloaded database starts fresh.
@@ -199,39 +213,80 @@ class PlanCache:
         if mode not in ("residual", "specialize"):
             raise ValueError(f"unknown mode {mode!r}")
         bindings = dict(bindings or {})
-        spec = plan_params(plan)
-        unknown = sorted(set(bindings) - set(spec))
+        names, baked = self._shape_of(plan, mode)
+        unknown = sorted(set(bindings) - names)
         if unknown:
             raise KeyError(f"unknown parameters {unknown}; this plan takes "
-                           f"{sorted(spec)}")
-        missing = sorted(set(spec) - set(bindings))
+                           f"{sorted(names)}")
+        missing = sorted(names - set(bindings))
         if missing:
             raise KeyError(f"no binding supplied for parameters {missing}")
-        baked = set(spec) if mode == "specialize" else \
-            {n for n, i in spec.items() if i.structural}
-        owned = False
-        if baked:
-            # substitution mutates expression slots: work on a copy
-            plan = bind_plan(copy.deepcopy(plan),
-                             {n: bindings[n] for n in baked})
-            owned = True
         runtime = {n: v for n, v in bindings.items() if n not in baked}
-        # dataclass reprs are recursive and deterministic: they canonicalize
-        # the full plan structure including substituted literals.  The db
-        # component is the Database's monotonic fingerprint, NOT id(db):
-        # ids are reused after GC, and a reused address would hand a new
-        # database a stale entry compiled against dead data.  The final
-        # component is the capacity vector the Compaction pass plants for
-        # this plan — the entry's static shapes, made explicit so capacity
-        # planning can never alias two entries compiled under different
-        # buckets and each bucket retraces at most once (mirroring PR 3's
-        # batch buckets).  Computing it runs the pass pipeline on a throw-
-        # away copy; the memo keys it on the other components, so only the
-        # first request for a plan shape pays and warm hits stay walk-free.
-        base = (repr(plan), dataclasses.astuple(settings),
-                self.db.fingerprint, self._mesh_size(settings))
+        tail = (dataclasses.astuple(settings), self.db.fingerprint,
+                self._mesh_size(settings))
+        # the shape memo: a repeat of (plan object, baked values, settings,
+        # database, mesh) takes the bound plan and the key's base from the
+        # first request instead of a deep copy and a repr.  The cache never
+        # mutates a caller's plan, and the server already relies on its
+        # caller not mutating a plan it submitted.
+        memo_key = (id(plan), mode, tuple((type(bindings[n]), bindings[n])
+                                          for n in baked)) + tail
+        try:
+            with self._lock:
+                memo = self._prepared.get(memo_key)
+        except TypeError:               # an unhashable baked value
+            memo_key = memo = None
+        hit = memo is not None and memo[0] is plan
+        if hit:
+            _, base, plan = memo
+            owned = False               # the memo's copy is shared
+        else:
+            given, owned = plan, False
+            if baked:
+                # substitution mutates expression slots: work on a copy
+                plan = bind_plan(copy.deepcopy(plan),
+                                 {n: bindings[n] for n in baked})
+                owned = True
+            # dataclass reprs are recursive and deterministic: they
+            # canonicalize the full plan structure including substituted
+            # literals.  The db component is the Database's monotonic
+            # fingerprint, NOT id(db): ids are reused after GC, and a
+            # reused address would hand a new database a stale entry
+            # compiled against dead data.
+            base = (repr(plan),) + tail
+            if memo_key is not None:
+                # a pristine copy: an owned plan goes on to
+                # `CompiledQuery`, whose passes mutate it
+                with self._lock:
+                    if len(self._prepared) >= 4 * self.max_entries:
+                        self._prepared.clear()
+                    self._prepared[memo_key] = (
+                        given, base, copy.deepcopy(plan) if owned else plan)
+        # The final component is the capacity vector the Compaction pass
+        # plants for this plan — the entry's static shapes, made explicit
+        # so capacity planning can never alias two entries compiled under
+        # different buckets and each bucket retraces at most once.
+        # Computing it runs the pass pipeline on a throw-away copy; the
+        # memo keys it on the other components, so only the first request
+        # for a plan shape pays and warm hits stay walk-free.
         caps = self._capacity_signature(base, plan, settings, runtime)
-        return base + (caps,), plan, runtime, owned
+        return Prepared((base + (caps,), plan, runtime, owned), hit)
+
+    def _shape_of(self, plan: ir.Plan, mode: str) -> tuple:
+        """(every parameter name, the sorted names baked into the plan)
+        for `plan` under `mode`, memoized on the plan object."""
+        with self._lock:
+            got = self._shapes.get((id(plan), mode))
+        if got is not None and got[0] is plan:
+            return got[1:]
+        spec = plan_params(plan)
+        baked = tuple(sorted(spec)) if mode == "specialize" else \
+            tuple(sorted(n for n, i in spec.items() if i.structural))
+        with self._lock:
+            if len(self._shapes) >= 4 * self.max_entries:
+                self._shapes.clear()
+            self._shapes[(id(plan), mode)] = (plan, frozenset(spec), baked)
+        return frozenset(spec), baked
 
     def _mesh_size(self, settings: Settings) -> int:
         """Resolved data-mesh size for the cache key.  `astuple(settings)`

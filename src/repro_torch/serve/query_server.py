@@ -15,7 +15,7 @@ into a single batch, executed by one `CompiledQuery.run_many` (via
 `PlanCache.run_many`: from `compile.BATCH_MIN` requests one staged
 walk under vmap for the whole group, each engine kernel one launch a
 call site, the counts read in one copy), and their results scattered
-back to the per-request futures.  A window flushes when it
+back to the per-request futures.  A window is ready when it
 fills (`max_batch`), when its deadline expires (the flusher thread's
 tick), or when `flush()`/`drain()` forces it — `drain` flushes partial
 windows, so no request can hang because traffic stopped mid-tick.  The
@@ -23,6 +23,20 @@ window length adapts to the observed arrival rate (an EMA of
 inter-arrival gaps, the `StragglerStats` idiom): sparse traffic widens
 the window to coalesce more, dense traffic narrows it toward the time a
 full batch takes to arrive.
+
+A ready window goes to a worker only when one is free: at most
+`max_workers` groups are dispatched and unfinished, and of those at most
+one runs a plan already staged (a warm key; every key of a tiered
+server).  Warm groups run one at a time because side by side, under one
+interpreter lock and on one stream, they slowed each other (PERF.md
+§6); a window whose key still has to be staged takes any free
+worker, so a cold compile stalls no warm key.  While no worker can take
+it, a due window keeps taking its key's requests up to its batch cap,
+and a ready window waits (`ServerStats.held`) instead of queueing as a
+group of its own; a freed worker takes the waiting window whose oldest
+request arrived first, whatever its key.  So under a backlog the
+windows fill, and with a worker idle a window leaves at its deadline as
+before.
 
 Overload hardening (docs/architecture.md §10):
 
@@ -86,6 +100,7 @@ from typing import Callable, Optional
 from repro_torch.core import ir, tiering
 from repro_torch.core.passes.pipeline import Settings, preset
 from repro_torch.core.plan_cache import PlanCache
+from repro_torch.core.spans import span
 from repro_torch.serve.admission import (AdmissionController, DeadlineExceeded,
                                    LatencyHistogram, Overloaded, RateEMA,
                                    TransientError)
@@ -107,6 +122,8 @@ class ServerStats:
     shared_compiles: int = 0   # groups that parked on an in-flight compile
     batches: int = 0           # dispatched groups (including singletons)
     coalesced: int = 0         # requests that shared a run_many
+    held: int = 0              # ready windows that waited for a worker
+    prepare_hits: int = 0      # submits keyed by the plan cache's memo
     # degradation ladder + fault handling
     shed_batch: int = 0        # requests served under shrunken windows
     shed_plan: int = 0         # requests served via degraded mask-only plans
@@ -142,7 +159,7 @@ class _Entry:
     t_submit: float                  # monotonic submit time (latency)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class _Window:
     """One coalescing window: all pending requests for one plan key."""
     plan: ir.Plan                    # prepared (structurally bound) plan
@@ -151,6 +168,8 @@ class _Window:
     settings: Settings               # full or degraded (ladder rung 2)
     max_batch: int                   # full or shrunken (ladder rung 1)
     entries: list = dataclasses.field(default_factory=list)  # [_Entry]
+    held: bool = False               # counted in `ServerStats.held`
+    warm: bool = False               # dispatched to the one warm slot
 
 
 class QueryServer:
@@ -207,11 +226,17 @@ class QueryServer:
         self._arrivals = RateEMA()
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="query-server")
+        self._max_workers = max_workers
+        self._busy = 0                     # groups dispatched, unfinished
+        self._warm_busy = False            # a warm group is dispatched
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        self._windows: dict[tuple, _Window] = {}
+        self._windows: dict[tuple, _Window] = {}   # open to new requests
+        self._closed_windows: list[tuple] = []     # (key, full or flushed)
         self._inflight: dict[tuple, threading.Event] = {}
-        self._futures: list[Future] = []
+        # unresolved futures: each leaves in its done callback, so a
+        # submit under a backlog pays no scan of the others
+        self._futures: set[Future] = set()
         self._closed = False
         self._flusher = threading.Thread(target=self._flush_loop,
                                          name="query-server-flusher",
@@ -222,62 +247,60 @@ class QueryServer:
     def submit(self, plan: ir.Plan, bindings: Optional[dict] = None,
                mode: str = "residual", *, tenant: Optional[str] = None,
                priority: int = 0, timeout_s=_UNSET) -> Future:
-        if self._closed:
-            raise RuntimeError("server is closed")
-        now = time.monotonic()
-        timeout = self.default_timeout_s if timeout_s is _UNSET else timeout_s
-        deadline = None if timeout is None else now + timeout
-        # degradation rung from the load *before* this request admits —
-        # it decides the settings, which decide the plan key, so it must
-        # be read before _prepare (a concurrent submit may shift the load
-        # by one; the rungs are heuristics, not invariants).
-        level = self._level()
-        settings = self._degraded_settings if level >= 2 else self.settings
-        # one canonicalization per request: compile-time params are baked
-        # into the plan here, so the key both dedups compilation and
-        # partitions the coalescing windows by plan structure.  Binding
-        # errors (missing params) raise here, before any accounting.
-        key, prepared, runtime, owned = self.cache._prepare(
-            plan, settings, bindings, mode)
-        fut: Future = Future()
-        entry = _Entry(runtime, fut, deadline, tenant, now)
-        full = None
-        with self._cv:
-            if self._closed:   # re-check under the lock: close() races us
+        with span("repro.serve.submit"):
+            if self._closed:
                 raise RuntimeError("server is closed")
-            self.stats.submitted += 1
-            self._arrivals.observe(now)
-            try:
-                self.admission.admit(tenant, priority)
-            except Overloaded:
-                self.stats.rejected += 1
-                raise
+            now = time.monotonic()
+            timeout = self.default_timeout_s if timeout_s is _UNSET else timeout_s
+            deadline = None if timeout is None else now + timeout
+            # degradation rung from the load *before* this request admits —
+            # it decides the settings, which decide the plan key, so it must
+            # be read before _prepare (a concurrent submit may shift the load
+            # by one; the rungs are heuristics, not invariants).
+            level = self._level()
+            settings = self._degraded_settings if level >= 2 else self.settings
+            # one canonicalization per request: compile-time params are baked
+            # into the plan here, so the key both dedups compilation and
+            # partitions the coalescing windows by plan structure.  Binding
+            # errors (missing params) raise here, before any accounting.
+            prepared = self.cache._prepare(plan, settings, bindings, mode)
+            key, bound, runtime, owned = prepared
+            fut: Future = Future()
+            entry = _Entry(runtime, fut, deadline, tenant, now)
+            with self._cv:
+                if self._closed:   # re-check under the lock: close() races us
+                    raise RuntimeError("server is closed")
+                self.stats.submitted += 1
+                self._arrivals.observe(now)
+                try:
+                    self.admission.admit(tenant, priority)
+                except Overloaded:
+                    self.stats.rejected += 1
+                    raise
+                self.stats.prepare_hits += prepared.memo_hit
+                if level >= 2:
+                    self.stats.shed_plan += 1
+                elif level >= 1:
+                    self.stats.shed_batch += 1
+                self._futures.add(fut)
+                w = self._windows.get(key)
+                if w is None:
+                    w = _Window(bound, owned, now + self._window_len(level),
+                                settings, self._batch_cap(level))
+                    self._windows[key] = w
+                    self._cv.notify()
+                w.entries.append(entry)
+                if len(w.entries) >= w.max_batch:
+                    self._closed_windows.append((key, self._windows.pop(key)))
+                ready = self._take_ready(now)
+            # the admission slot frees on ANY resolution (result, error,
+            # cancel, close); successful completions also feed the latency
+            # histogram here, since every resolution path runs the callbacks
+            fut.add_done_callback(self._release_cb(tenant, now))
             if level >= 2:
-                self.stats.shed_plan += 1
-            elif level >= 1:
-                self.stats.shed_batch += 1
-            # completed futures (and their pinned results) don't accumulate
-            self._futures = [f for f in self._futures if not f.done()]
-            self._futures.append(fut)
-            w = self._windows.get(key)
-            if w is None:
-                w = _Window(prepared, owned, now + self._window_len(level),
-                            settings, self._batch_cap(level))
-                self._windows[key] = w
-            w.entries.append(entry)
-            if len(w.entries) >= w.max_batch:
-                full = self._windows.pop(key)
-            else:
-                self._cv.notify()
-        # the admission slot frees on ANY resolution (result, error,
-        # cancel, close); successful completions also feed the latency
-        # histogram here, since every resolution path runs the callbacks
-        fut.add_done_callback(self._release_cb(tenant, now))
-        if level >= 2:
-            self.cache.note_degraded()
-        if full is not None:
-            self._dispatch(key, full)
-        return fut
+                self.cache.note_degraded()
+            self._dispatch(ready)
+            return fut
 
     def serve_batch(self, requests) -> list:
         """Submit (plan, bindings) pairs together, flush, drain in order."""
@@ -286,12 +309,14 @@ class QueryServer:
         return [f.result() for f in futs]
 
     def flush(self) -> None:
-        """Dispatch every open window now, full or not (a forced tick)."""
+        """Close every open window, full or not (a forced tick): each goes
+        to a worker now, or to the next one free."""
         with self._cv:
-            popped = list(self._windows.items())
+            self._closed_windows.extend(self._windows.items())
             self._windows.clear()
-        for key, w in popped:
-            self._dispatch(key, w)
+            self._cv.notify_all()      # no deadline left to wait for
+            ready = self._take_ready(time.monotonic())
+        self._dispatch(ready)
 
     def prewarm(self, requests) -> int:
         """Eagerly warm the cache for (plan, bindings) shapes a previous
@@ -320,8 +345,6 @@ class QueryServer:
         # wait() tolerates cancelled futures, unlike f.exception(); request
         # errors stay parked on the futures for their owners to observe.
         wait(pending)
-        with self._cv:
-            self._futures = [f for f in self._futures if not f.done()]
 
     def close(self) -> None:
         """Close the server: no new submissions, then settle every
@@ -376,8 +399,10 @@ class QueryServer:
         # would otherwise hang its owner forever — resolve it with an
         # error.
         with self._cv:
-            leftovers = list(self._windows.values())
+            leftovers = list(self._windows.values()) + [
+                w for _k, w in self._closed_windows]
             self._windows.clear()
+            self._closed_windows.clear()
         exc = RuntimeError("server closed with the request unresolved")
         for w in leftovers:
             n = self._settle_entries(w.entries, exc)
@@ -385,7 +410,7 @@ class QueryServer:
                 self.stats.errors += n
         with self._cv:
             unresolved = [f for f in self._futures if not f.done()]
-            self._futures = []
+            self._futures = set()
         for f in unresolved:
             if self._settle(f, exc=exc) == "done":
                 with self._lock:
@@ -442,45 +467,93 @@ class QueryServer:
     def _release_cb(self, tenant: Optional[str], t_submit: float):
         def _done(f: Future) -> None:
             self.admission.release(tenant)
-            if not f.cancelled() and f.exception() is None:
-                dt = time.monotonic() - t_submit
-                with self._lock:
+            ok = not f.cancelled() and f.exception() is None
+            dt = time.monotonic() - t_submit
+            with self._lock:
+                # completed futures (and their pinned results) don't
+                # accumulate
+                self._futures.discard(f)
+                if ok:
                     self.stats.latency.observe(dt)
         return _done
 
-    # -- coalescing tick ------------------------------------------------------
+    # -- coalescing tick and dispatch -----------------------------------------
     def _flush_loop(self):
-        """Flusher thread: dispatch each window when its deadline passes
-        (the tick), sleeping until the next deadline otherwise."""
+        """Flusher thread: a window is ready when its deadline passes (the
+        tick); sleeps until the next deadline of a window not yet due."""
         while True:
-            popped = []
             with self._cv:
                 if self._closed and not self._windows:
                     return
                 now = time.monotonic()
-                due = [k for k, w in self._windows.items()
-                       if w.deadline <= now]
-                for k in due:
-                    popped.append((k, self._windows.pop(k)))
-                if not popped:
-                    nxt = min((w.deadline for w in self._windows.values()),
-                              default=None)
-                    self._cv.wait(None if nxt is None
-                                  else max(0.0, nxt - now))
+                ready = self._take_ready(now)
+                if not ready:
+                    nxt = min((w.deadline for w in self._windows.values()
+                               if w.deadline > now), default=None)
+                    self._cv.wait(None if nxt is None else nxt - now)
                     continue
-            for key, w in popped:
-                self._dispatch(key, w)
+            self._dispatch(ready)
 
-    def _dispatch(self, key: tuple, window: _Window) -> None:
+    def _take_ready(self, now: float) -> list:
+        """Pop the ready windows that free workers take now, oldest
+        request first across keys, one warm group at most (the module
+        docstring), and count the ready ones left waiting (caller holds
+        the lock).  Ready: closed (full or flushed), or open past its
+        deadline; an open one keeps taking requests meanwhile."""
+        ready = [(k, w) for k, w in self._closed_windows] + [
+            (k, w) for k, w in self._windows.items() if w.deadline <= now]
+        ready.sort(key=lambda kw: kw[1].entries[0].t_submit)
+        taken = []
+        for k, w in ready:
+            if self._busy + len(taken) >= self._max_workers:
+                break
+            w.warm = self.tiered or self.cache.contains(k)
+            if w.warm and self._warm_busy:
+                continue
+            self._warm_busy |= w.warm
+            taken.append((k, w))
+            if self._windows.get(k) is w:
+                del self._windows[k]
+            else:
+                self._closed_windows.remove((k, w))
+        self._busy += len(taken)
+        for _k, w in ready:
+            if not w.held and all(w is not t for _t, t in taken):
+                w.held = True
+                self.stats.held += 1
+        return taken
+
+    def _finished(self, window: _Window) -> None:
+        """A dispatched group is done with its worker (caller holds the
+        lock)."""
+        self._busy -= 1
+        if window.warm:
+            self._warm_busy = False
+
+    def _dispatch(self, ready: list) -> None:
+        for key, window in ready:
+            try:
+                self._pool.submit(self._group, key, window)
+            except RuntimeError as e:
+                # pool already shut down (a submit raced close()): fail the
+                # window's requests instead of stranding their futures —
+                # and never let the exception kill the flusher thread.
+                n = self._settle_entries(window.entries, e)
+                with self._lock:
+                    self.stats.errors += n
+                    self._finished(window)
+
+    def _group(self, key: tuple, window: _Window) -> None:
+        """A worker's run of one dispatched group; then, the worker being
+        free, the next ready window."""
         try:
-            self._pool.submit(self._run_group, key, window)
-        except RuntimeError as e:
-            # pool already shut down (a submit raced close()): fail the
-            # window's requests instead of stranding their futures — and
-            # never let the exception kill the flusher thread.
-            n = self._settle_entries(window.entries, e)
-            with self._lock:
-                self.stats.errors += n
+            with span("repro.serve.group"):
+                self._run_group(key, window)
+        finally:
+            with self._cv:
+                self._finished(window)
+                ready = self._take_ready(time.monotonic())
+            self._dispatch(ready)
 
     # -- future settlement ----------------------------------------------------
     @staticmethod
