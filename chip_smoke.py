@@ -11,7 +11,8 @@ result line):
      `opt-pallas` on the CPU — the port's own reference answers — and the
      row layout of q1, q6, q12 and q19 at `opt-pallas`, while recording
      the operands the opt-pallas plans hand to each kernel (those of q1,
-     q3, q6 and q12 feed phases 4 and 4b), and the batched instances'
+     q3, q6 and q12 feed phases 4 and 4b, and q18's large-domain
+     aggregation phase 4), and the batched instances'
      operands of a two-binding `run_many` of each parameterized plan at
      opt-pallas (phase 4c);
   3. build every kernel library, every generated instance phase 5 reaches
@@ -35,8 +36,12 @@ result line):
      version and the oracle; the shapes one launch cannot take (17 sums
      beside l_returnflag through the engine at opt-pallas, against the
      CPU answer; a dense G = 4096, A = 14 call, against the plain
-     version); time kernel, plain version and, where one exists, a
-     single PyTorch call computing the same function, and require one
+     version); the large-domain aggregation (`dense_agg`) at q3's and
+     q18's recorded calls (5,999,771 rows) against its plain version
+     (the segment operations it replaced): counts exact, sums within
+     KERNEL_TOL, carries exact on the groups present; time kernel, plain
+     version and, where one exists, a single PyTorch call computing the
+     same function (the largest recorded call of each), and require one
      kernel a call (compact_pred with its memset, the selective form at
      capacity 0);
   4c. the batched instances (the bind-many pass: `run_many` under
@@ -44,8 +49,11 @@ result line):
      bindings): each recorded call widened to B = 1, 7 and 64 bindings,
      against its batched plain version (integers exact, floats within
      KERNEL_TOL), every slot b bit for bit the scalar kernel's output on
-     binding b's operands, one launch a call (with its memset for the
-     compactions; counted in the host's runtime calls, and on the device
+     binding b's operands (the large-domain aggregation's, which sums by
+     atomics, under `dense_agg_err`), one launch a call (with its memset
+     for the compactions and the large-domain aggregation, which
+     launches a second kernel, the carries' decode, where it has
+     carries: q3's 64-binding call; counted in the host's runtime calls, and on the device
      in up to three profiler windows); at B = 64 each timed (kernel,
      plain version, the one PyTorch call of the same function where
      there is one, device profile, host clock) beside a bound
@@ -82,7 +90,10 @@ result line):
      opt-pallas, every opt-pallas run to launch exactly what the
      reference's plan calls at SF 1 (`LAUNCHES_SF1`: q4 filter_agg 1, q7
      compact 1, q9full filter_agg 1, ...; tests/test_torch_sf1_launches.py
-     counts them in the reference), and no overflow at opt or opt-pallas.
+     counts them in the reference) and the port's large-domain
+     aggregations (`DENSE_AGG_SF1`: one in each of q3, q7, q10, q13, q17
+     and q18; the first `run()` is an eager walk, which moves the
+     counters), and no overflow at opt or opt-pallas.
      Time every query and rung (median and minimum of 5 runs after one
      warm-up, `run()` and the device program alone), freeing each query
      before the next;
@@ -94,10 +105,12 @@ result line):
      opt, one staging a shape, no library built by the rebind, the
      launches `LAUNCHES_SF1_PARAM` requires, cold (staging, `compile()`
      and first run) and warm times, and a specialized binding's own
-     build; (b) the batched pass, its launch counters set to 0 before
+     build (these runs replay the captured walk, whose large-domain
+     aggregation moves no counter); (b) the batched pass, its launch counters set to 0 before
      and read after: 64 bindings of each of the six plans as one
      `run_many`, one execution each, launching exactly
-     `LAUNCHES_SF1_PARAM[q]` (not 64 times it), every batched instance
+     `LAUNCHES_SF1_PARAM[q]` and `DENSE_AGG_SF1_PARAM[q]` (not 64 times
+     them), every batched instance
      launched, q1's and q6's selective launch on the staged path (the
      wrapper's `filter_agg.staging`), q14's and q19's aggregations on the
      staged register regime (`filter_agg.filter_agg_staging`) and q12's
@@ -292,7 +305,16 @@ LAUNCHES_SF1 = {
     "q18": {},
     "q19": {"filter_agg": 1},
 }
-# kernel launches of one execution of each parameterized plan
+# launches of the port's large-domain aggregation (`kernels/dense_agg.py`)
+# in one eager walk of each query at opt-pallas, TPC-H SF 1, seed 0, and
+# in one batched pass of each parameterized plan: the reference has no
+# kernel there (its segment operations aggregate those domains), so these
+# stand beside its tables.  A replayed walk launches the kernel inside a
+# captured segment and moves no counter: phase 5 reads an eager run,
+# phase 7 (a) replays (none), phase 7 (b) reads the batched pass
+DENSE_AGG_SF1 = {q: 1 for q in ("q3", "q7", "q10", "q13", "q17", "q18")}
+DENSE_AGG_SF1_PARAM = {"q3": 1}
+
 # (`PARAM_QUERIES`) at opt-pallas, TPC-H SF 1, seed 0, its capacities
 # planned for the default bindings: the reference's kernel entry calls
 # while its plan is traced under the default and the alternative bindings
@@ -306,6 +328,17 @@ LAUNCHES_SF1_PARAM = {
     "q14": {"filter_agg": 1},
     "q19": {"filter_agg": 1},
 }
+
+
+def launches_sf1(q: str, param: bool = False) -> dict:
+    """The launches an eager walk of q (a batched pass of the
+    parameterized plan q, with `param`) makes at opt-pallas, SF 1: the
+    reference's kernel calls and the port's large-domain aggregations."""
+    ref, dense = (LAUNCHES_SF1_PARAM, DENSE_AGG_SF1_PARAM) if param \
+        else (LAUNCHES_SF1, DENSE_AGG_SF1)
+    return {**ref[q], **({"dense_agg": dense[q]} if q in dense else {})}
+
+
 RUNS = 5                         # timed runs of each query, after a warm-up
 SORT_INSENSITIVE = {"q3", "q10", "q18"}
 KERNEL_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -317,6 +350,8 @@ REPLACES = {
     "gather_join": "src/repro/kernels/gather_join.py:36",
     "masked_topk": "src/repro/kernels/topk.py:38",
     "selective_filter_agg_capacity": "src/repro/kernels/filter_agg.py:156",
+    # the reference's dense aggregation past filter_agg's domains
+    "dense_agg": "src/repro/core/operators/agg.py:252",
 }
 SOURCES = {
     "compact": "src/repro_torch/kernels/csrc/compact.cuh",
@@ -327,9 +362,10 @@ SOURCES = {
     "masked_topk": "src/repro_torch/kernels/csrc/topk.cu",
     "selective_filter_agg_capacity":
         "src/repro_torch/kernels/csrc/filter_agg.cuh",
+    "dense_agg": "src/repro_torch/kernels/csrc/dense_agg.cu",
 }
 ENGINE_KERNELS = ["compact", "compact_pred", "filter_agg",
-                  "selective_filter_agg"]
+                  "selective_filter_agg", "dense_agg"]
 LIBRARY_KERNELS = ["gather_join", "masked_topk",
                    "selective_filter_agg_capacity"]
 SUBNORMAL = 1.1754944e-39        # a float32 subnormal: 2**-126 / 10
@@ -402,7 +438,7 @@ def assert_same(a: dict, b: dict, sort_insensitive: bool, what: str):
 
 # the engine's kernel entry points in `repro_torch.kernels.ops`
 ENTRY_POINTS = ["filter_agg_query", "compact_query", "compact_pred_query",
-                "selective_agg_query"]
+                "selective_agg_query", "dense_agg_query"]
 
 
 def cpu_answers(db, queries):
@@ -600,12 +636,45 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def dense_agg_err(got, want, what: str) -> float:
+    """The large-domain aggregation's `(sums, counts, carried)` (one
+    binding's or B in front) against the plain version's: counts exact,
+    sums within KERNEL_TOL (both add in no fixed order on the card),
+    each carry exact on the groups present; an absent group's carry is
+    the kernel's 0 and the plain version's fill.  Returns the max
+    error."""
+    (gs, gc, gk), (ws, wc, wk) = got, want
+    err = max_err([gc, *gs], [wc, *ws], what)
+    present = wc > 0
+    return max(err, max_err([g[present] for g in gk],
+                            [w[present] for w in wk], f"{what} carries",
+                            exact=True))
+
+
+def dense_agg_parts(rows, a):
+    """The packed rows of a batched large-domain aggregation called with
+    `a` as `(sums, counts, carried)`."""
+    kd = kmod("dense_agg")
+    _mask, _gidx, vals, cars, D = a
+    return kd.unpack(rows, D, len(vals), kd.kinds(cars))
+
+
+def dense_agg_bytes(mask, gidx, vals, cars, D: int) -> int:
+    """The bytes a large-domain aggregation must move: each binding's
+    mask, the key, values and carries of each row it keeps, and the
+    counts, sums and carries written once, 4 B a group each."""
+    B = batch_of([mask, gidx, *vals, *cars]) or 1
+    kept = int(mask.sum()) * (B if mask.ndim == 1 else 1)
+    cols = 1 + len(vals) + len(cars)
+    return mask.numel() + 4 * cols * (kept + B * D)
+
+
 def kernel_checks(records, dev, timed: bool):
     """One entry per kernel: max error over every check, times and bound
     at the SF 1 shape of the slice (the largest recorded call)."""
     import torch
 
-    kc, kf = kmod("compact"), kmod("filter_agg")
+    kc, kf, kd = kmod("compact"), kmod("filter_agg"), kmod("dense_agg")
 
     out = {}
 
@@ -704,6 +773,18 @@ def kernel_checks(records, dev, timed: bool):
                          cols, scalars, pred_fn, value_fns, gidx_fn, G),
                      "plain_ms": lambda: kf.selective_filter_agg_plain(
                          cols, scalars, pred_fn, value_fns, gidx_fn, G),
+                     "library_ms": None})
+        elif entry == "dense_agg_query":
+            mask, gidx, vals, cars, D = a
+            gidx = gidx.to(torch.int32)
+            err = dense_agg_err(kd.dense_agg(mask, gidx, vals, cars, D),
+                                kd.dense_agg_plain(mask, gidx, vals, cars, D),
+                                f"dense_agg {q}")
+            note("dense_agg", err, dense_agg_bytes(mask, gidx, vals, cars, D),
+                 mask.shape[0], {
+                     "ms": lambda: kd.dense_agg(mask, gidx, vals, cars, D),
+                     "plain_ms": lambda: kd.dense_agg_plain(
+                         mask, gidx, vals, cars, D),
                      "library_ms": None})
     return out
 
@@ -990,6 +1071,10 @@ BATCHED = {
         "filter_agg", "selective_filter_agg_batched_packed",
         "selective_filter_agg_batched", "selective_filter_agg_batched_plain",
         "selective_filter_agg"),
+    # the packed rows are its batched form (`dense_agg_parts` splits them)
+    "dense_agg_batched": ("dense_agg", "dense_agg_batched_packed",
+                          "dense_agg_batched_packed",
+                          "dense_agg_batched_plain", "dense_agg"),
 }
 # the batched pass's launches, by the scalar kernel they count against in
 # LAUNCHES_SF1_PARAM
@@ -999,7 +1084,14 @@ BATCHED_OF = {name: spec[4] for name, spec in BATCHED.items()}
 # `compact_pred_batched` clears the heads only, its pad shares the idx
 # past each count, but it is still one memset)
 BATCHED_MEMSETS = {"compact_batched": 1, "compact_pred_batched": 1,
-                   "filter_agg_batched": 0, "selective_filter_agg_batched": 0}
+                   "filter_agg_batched": 0, "selective_filter_agg_batched": 0,
+                   "dense_agg_batched": 1}
+
+
+def batched_kernels(name: str, a) -> int:
+    """Kernels a batched call launches: one, and the large-domain
+    aggregation's carry decode where it has carries."""
+    return 1 + (name == "dense_agg_batched" and len(a[3]) > 0)
 BATCH_SIZES = (1, 7, 64)         # phase 4c's bindings a call
 BATCH_TIMED = 64                 # and the timed one
 RUN_MANY_SIZES = (1, 2, 3, 4, 16, 64)  # phase 7 (b)'s bindings a call
@@ -1083,6 +1175,10 @@ def _binding_args(name: str, a, b: int):
     if name == "filter_agg_batched":
         mask, gidx, vals, G = a
         return (one(mask), one(gidx), [one(v) for v in vals], G), {}
+    if name == "dense_agg_batched":
+        mask, gidx, vals, cars, D = a
+        return (one(mask), one(gidx), [one(v) for v in vals],
+                [one(c) for c in cars], D), {}
     cols, fp, ip, kinds, pred, *rest = a
     cols = {k: one(v) for k, v in cols.items()}
     sc = kc.binding_scalars(fp, ip, kinds, b)
@@ -1237,15 +1333,23 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
             wa = widen(a, B)
             got = getattr(m, public)(*wa, **k)
             want = getattr(m, plain)(*wa, **k)
+            dense = name == "dense_agg_batched"
             e = out.setdefault(name, {"max_abs_err": 0.0, "n": -1,
                                       "calls": 0})
-            e["max_abs_err"] = max(e["max_abs_err"], max_err(
+            e["max_abs_err"] = max(e["max_abs_err"], dense_agg_err(
+                dense_agg_parts(got, wa), dense_agg_parts(want, wa),
+                f"{name} {q} B={B}") if dense else max_err(
                 got, want, f"{name} {q} B={B}"))
             e["calls"] += 1
             if dev.type == "cuda":
                 for b in range(B):
                     sa, sk = _binding_args(name, wa, b)
                     one = getattr(m, scalar)(*sa, **sk)
+                    if dense:   # sums by atomics: to float32 rounding
+                        dense_agg_err(dense_agg_parts(got[b], wa), one,
+                                      f"{name} {q} B={B}: slot {b} against "
+                                      "the scalar kernel")
+                        continue
                     check(all(torch.equal(g[b], w)
                               for g, w in zip(got, one)),
                           f"{name} {q} B={B}: slot {b} differs from the "
@@ -1256,7 +1360,8 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
             if B != BATCH_TIMED or (n <= e["n"] and not every):
                 continue
             c = {"n": n, "B": B, "query": q,
-                 "bytes": _batched_bytes(name, wa, got)}
+                 "bytes": dense_agg_bytes(*wa) if dense
+                 else _batched_bytes(name, wa, got)}
             if name == "selective_filter_agg_batched":
                 c.update(selective_work(wa, got))
             if timed:
@@ -1268,7 +1373,8 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
                          library_ms=time_ms(lib, reps=3, inner=1)
                          if lib is not None else None,
                          host_ms=host_ms(fn),
-                         **one_launch_a_call(name, fn, BATCHED_MEMSETS[name]))
+                         **one_launch_a_call(name, fn, BATCHED_MEMSETS[name],
+                                             batched_kernels(name, wa)))
                 del lib
                 if name == "selective_filter_agg_batched":
                     c["staging"] = m.selective_batched_info(*wa)
@@ -1296,8 +1402,8 @@ def batched_checks(brecords, dev, timed: bool) -> dict:
     check(not missing, f"no recorded call of {missing}")
     log(f"batched instances at B = {', '.join(map(str, BATCH_SIZES))}: "
         "equal to the batched plain versions"
-        + (", every slot the scalar kernel's bit for bit"
-           if dev.type == "cuda" else ""))
+        + (", every slot the scalar kernel's bit for bit (the large-domain "
+           "aggregation's to float32 rounding)" if dev.type == "cuda" else ""))
     return out
 
 
@@ -1326,37 +1432,37 @@ def batched_race_checks(dev) -> float:
     return err
 
 
-def one_launch_a_call(name: str, fn, memsets: int) -> dict:
-    """`profile_call(fn)` of calls that each made one kernel launch and
-    `memsets` memsets, counted in the host's runtime calls, or fail.  On
-    the device a window must record some kernel and no more kernels or
-    memsets than that; a window that recorded fewer than every call's is
-    taken again, up to three windows, and logs when each launch was made
-    and each recorded kernel began.  If every window lost events, the
-    last one's device time stands as recorded, flagged
-    `device_events_lost`."""
+def one_launch_a_call(name: str, fn, memsets: int, kernels: int = 1) -> dict:
+    """`profile_call(fn)` of calls that each made `kernels` kernel
+    launches (one unless said) and `memsets` memsets, counted in the
+    host's runtime calls, or fail.  On the device a window must record
+    some kernel and no more kernels or memsets than that; a window that
+    recorded fewer than every call's is taken again, up to three
+    windows, and logs when each launch was made and each recorded kernel
+    began.  If every window lost events, the last one's device time
+    stands as recorded, flagged `device_events_lost`."""
     for _ in range(3):
         p = profile_call(fn, times=True)
         times = {k: p.pop(k) for k in ("launch_us", "kernel_us")}
-        check(p["api_launches_per_call"] == 1
+        check(p["api_launches_per_call"] == kernels
               and p["api_memsets_per_call"] == memsets,
               f"{name}: {p['api_launches_per_call']} launches, "
               f"{p['api_memsets_per_call']} memsets a call")
-        check(0 < p["kernels_per_call"] <= 1
+        check(0 < p["kernels_per_call"] <= kernels
               and p["memsets_per_call"] <= memsets,
               f"{name}: {p['kernels_per_call']} kernels, "
               f"{p['memsets_per_call']} memsets a call on the device")
-        p["device_events_lost"] = (p["kernels_per_call"] < 1
+        p["device_events_lost"] = (p["kernels_per_call"] < kernels
                                    or p["memsets_per_call"] < memsets)
         if not p["device_events_lost"]:
-            log(f"{name}: one kernel and {memsets} memsets a call")
+            log(f"{name}: {kernels} kernel(s) and {memsets} memsets a call")
             return p
         log(f"{name}: the profiler recorded {p['kernels_per_call']} "
             f"kernels and {p['memsets_per_call']} memsets a call; launch "
             f"calls at {times['launch_us']} µs, kernels began at "
             f"{times['kernel_us']} µs")
-    log(f"{name}: one launch a call; device time as recorded, with events "
-        "lost")
+    log(f"{name}: {kernels} launch(es) a call; device time as recorded, "
+        "with events lost")
     return p
 
 
@@ -1663,7 +1769,8 @@ def main_path(db, queries, answers, counters, args):
     and opt-pallas against its CPU answer at the same preset, at the lower
     rungs against the CPU answer at opt, and the row layout of
     ROW_QUERIES at ROW_RUNGS likewise.  Checks each run's launches (none
-    outside opt-pallas; at opt-pallas exactly LAUNCHES_SF1's) and times
+    outside opt-pallas; at opt-pallas exactly `launches_sf1`'s: the first
+    `run()` walks eagerly) and times
     it: median and minimum of RUNS runs after one warm-up, each `run()`
     (the answer
     decoded on the host) and the device program alone (`execute` and a
@@ -1701,9 +1808,9 @@ def main_path(db, queries, answers, counters, args):
         if cuda and p != "opt-pallas":
             check(not delta, f"{what}: a kernel launched ({delta})")
         if cuda and p == "opt-pallas":
-            check(delta == LAUNCHES_SF1[q],
-                  f"{what}: launches {delta}, the reference's "
-                  f"{LAUNCHES_SF1[q]}")
+            check(delta == launches_sf1(q),
+                  f"{what}: launches {delta}, the reference's and the "
+                  f"port's large-domain aggregations' {launches_sf1(q)}")
 
         def timed(fn):
             fn()
@@ -1873,7 +1980,7 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
               f"{q}: {compile_mod.STAGINGS - s0} stagings for two bindings")
         check(len(build._LIBS) == libs1, f"{q}: the rebind built a library")
         check(cq.n_overflows == 0, f"{q}: {cq.n_overflows} overflows")
-        if cuda:
+        if cuda:        # replays: the captured kernel moves no counter
             for name, d in delta.items():
                 check(d == LAUNCHES_SF1_PARAM[q],
                       f"serve {q} {name}: launches {d}, the reference's "
@@ -1964,9 +2071,9 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
               f"run_many {q} x{big}: {cq.n_executions - e0} executions")
         check(cq.n_overflows == o0, f"run_many {q} x{big}: an overflow")
         if cuda:
-            check(got == LAUNCHES_SF1_PARAM[q],
-                  f"run_many {q} x{big}: launches {got}, one pass of the "
-                  f"reference's {LAUNCHES_SF1_PARAM[q]}")
+            want = launches_sf1(q, param=True)
+            check(got == want, f"run_many {q} x{big}: launches {got}, one "
+                  f"pass of the reference's and the port's {want}")
         log(f"run_many {q} x{big}: one execution, launches {got}")
         entries[q] = (cq, rts)
     batched_launched = {n: d[k] for n, (d, k) in bcounters.items()}
@@ -2199,7 +2306,7 @@ SHARDED_RUNS = 3                 # timed runs of each sharded query
 # count in `ops.calls`
 CALL_OF = {"compact": "compact", "compact_pred": "compact_pred",
            "filter_agg": "filter_agg",
-           "selective_filter_agg": "selective_agg"}
+           "selective_filter_agg": "selective_agg", "dense_agg": "dense_agg"}
 
 
 def place_shards(n: int, cuda: bool) -> str:
@@ -3738,11 +3845,13 @@ def main() -> int:
     answers, all_records = cpu_answers(db, QUERIES)
     served = param_answers(db)
     brecords = batched_records(db)
-    records = [r for r in all_records if r[0] in SLICE]
+    records = [r for r in all_records if r[0] in SLICE
+               or r[:2] == ("q18", "dense_agg_query")]
     seen = {(q, e) for q, e, _a, _k in records}
     for q, e in [("q1", "filter_agg_query"), ("q3", "compact_query"),
                  ("q6", "selective_agg_query"), ("q12", "compact_pred_query"),
-                 ("q12", "filter_agg_query")]:
+                 ("q12", "filter_agg_query"), ("q3", "dense_agg_query"),
+                 ("q18", "dense_agg_query")]:
         check((q, e) in seen, f"{q} did not reach {e}")
     subnormal = subnormal_operands(db, dev)
     log(f"phase 2 (data and CPU answers): {time.perf_counter() - t0:.1f} s")
@@ -3828,7 +3937,8 @@ def main() -> int:
     counters = {"compact": (kc.launches, "compact"),
                 "compact_pred": (kc.launches, "compact_pred"),
                 "filter_agg": (kf.launches, "filter_agg"),
-                "selective_filter_agg": (kf.launches, "selective_filter_agg")}
+                "selective_filter_agg": (kf.launches, "selective_filter_agg"),
+                "dense_agg": (kmod("dense_agg").launches, "dense_agg")}
     for d, k in counters.values():
         d[k] = 0
     launched, card, unsharded_ms = main_path(db, QUERIES, answers, counters,

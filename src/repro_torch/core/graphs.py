@@ -11,12 +11,16 @@ replayed.
 
 The walk is captured as segments: CUDA graphs cut at every call of one
 of the four engine entry points of `kernels/ops.py` (`filter_agg_query`,
-`compact_query`, `compact_pred_query`, `selective_agg_query`).  No hand
-kernel is captured.  The entry points stay eager calls on every run,
-made through the `ops` module's attribute (where a profiler's wrapper
-counts them) with the binding's parameters as host scalars, which the
-generated kernels take by value.  Only the work between them is
-replayed.
+`compact_query`, `compact_pred_query`, `selective_agg_query`).  Their
+kernels are not captured: the entry points stay eager calls on every
+run, made through the `ops` module's attribute (where a profiler's
+wrapper counts them) with the binding's parameters as host scalars,
+which the generated kernels take by value.  The work between them is
+replayed, and with it the one hand kernel that takes no runtime
+parameter: the large-domain aggregation (`ops.dense_agg_query`), which
+the operator calls directly, so that it runs inside a segment and is
+captured there.  A replay launches it without calling its entry point
+(`ops.calls` counts the capture's call only).
 
 Capture (`capture`, from `CompiledQuery.compile`): the runtime
 parameters reach the walk as 0-d views of one device buffer, at each

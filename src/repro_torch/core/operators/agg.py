@@ -226,10 +226,14 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         part = f.cols[g].arr.to(torch.int32) * stg
         idx = part if idx is None else idx + part
     idx = idx.clamp(0, D - 1)
+    if _large_domain_kernel_ok(a, f, ctx, D, vals):
+        return _one_pass(a, f, ctx, mask, idx, vals, D, kernel=True)
     kernel_sums = kernel_counts = None
     if _kernel_ok(D):
         kernel_sums, kernel_counts = _kernel_agg(idx, D)
         present = (kernel_counts > 0).to(torch.int32)
+    elif _one_pass_ok(a, f, vals):
+        return _one_pass(a, f, ctx, mask, idx, vals, D, kernel=False)
     else:
         present = be.segment_max(mi32, idx, D, 0)
         if f.part is not None:
@@ -285,6 +289,68 @@ def stage(a: ir.Agg, ctx: StageCtx, defer: bool = False) -> Frame:
         cols[spec.name] = Binding(
             _finalize(spec, sums, counts, mins, maxs), "num")
     return Frame(cols, present > 0)
+
+
+def _one_pass_ok(a: ir.Agg, f: Frame, vals: dict) -> bool:
+    """Is a dense aggregation one call of the large-domain aggregation
+    (`kernels/dense_agg.py`: the kernel, or its plain version, the
+    segment operations)?  An unsharded frame (a sharded one combines its
+    partials with collectives), sums, counts and averages of 1-D
+    columns, and 1-D carries."""
+    return (f.part is None
+            and all(s_.fn in ("sum", "count", "avg") for s_ in a.aggs)
+            and all(getattr(v, "ndim", 0) == 1 for v in vals.values())
+            and all(f.cols[c].arr.ndim == 1 for c in a.carry))
+
+
+def _large_domain_kernel_ok(a: ir.Agg, f: Frame, ctx: StageCtx, D: int,
+                            vals: dict) -> bool:
+    """Does a dense aggregation past `KERNEL_MAX_GROUPS` take the
+    large-domain kernel?  On the hand-kernel rung, one pass
+    (`_one_pass_ok`) of float32 columns and int32 or float32 carries, at
+    most a launch's columns of each."""
+    from repro_torch.kernels import dense_agg
+
+    carries = [f.cols[c].arr for c in a.carry]
+    return (ctx.use_kernels and D > KERNEL_MAX_GROUPS
+            and _one_pass_ok(a, f, vals)
+            and all(v.dtype == torch.float32 for v in vals.values())
+            and all(c.dtype in dense_agg.CARRY_DTYPES for c in carries)
+            and dense_agg.fits(len(vals), len(carries)))
+
+
+def _one_pass(a: ir.Agg, f: Frame, ctx: StageCtx, mask, idx, vals: dict,
+              D: int, kernel: bool) -> Frame:
+    """Sums, counts and carries of a dense domain in one call: the
+    kernel's entry point, or its plain version.  The entry point is
+    called directly, not through `ctx.kernel`: it takes no runtime
+    parameter, so a captured walk keeps its launches inside the segment
+    instead of cutting one there."""
+    from repro_torch.kernels import dense_agg, ops
+
+    names = [s_.name for s_ in a.aggs if s_.expr is not None]
+    values = [vals[nm] for nm in names]
+    carries = [f.cols[c].arr for c in a.carry]
+    if kernel:
+        sums, counts, carried = ops.dense_agg_query(
+            mask, idx, [v.contiguous() for v in values],
+            [c.contiguous() for c in carries], D)
+    else:
+        sums, counts, carried = dense_agg.dense_agg_plain(
+            mask, idx, values, carries, D)
+    cols = _key_columns(a, f, ctx, D)
+    for c, arr in zip(a.carry, carried):
+        b = f.cols[c]
+        cols[c] = Binding(arr, b.kind, b.table, b.col)
+    for spec in a.aggs:
+        if spec.fn == "count":
+            v = counts
+        else:
+            v = sums[names.index(spec.name)]
+            if spec.fn == "avg":
+                v = v / counts.clamp_min(1).to(torch.float32)
+        cols[spec.name] = Binding(v, "num")
+    return Frame(cols, counts > 0)
 
 
 def _generic(a: ir.Agg, f: Frame, mask, vals: dict, ctx: StageCtx,

@@ -24,12 +24,14 @@ tensors take the plain torch versions, CUDA tensors launch the hand
 kernels or the call raises), and each kernel picks its own block shape.
 
 The engine's entry points: `filter_agg_query` is the integration point
-of scalar and dense aggregation; `compact_query`, `compact_pred_query`
-and `selective_agg_query` those of `operators.compact` and the fused
-selective pipeline.  `calls` counts the calls of each engine entry point
-whichever version ran; the kernel modules' `launches` count CUDA
-launches only.  Both count under a lock (`build.bump`): a server's pool
-threads execute queries at the same time.
+of scalar and dense aggregation, `dense_agg_query` that of dense
+aggregation past `filter_agg`'s domains (`dense_agg.py`);
+`compact_query`, `compact_pred_query` and `selective_agg_query` those
+of `operators.compact` and the fused selective pipeline.  `calls`
+counts the calls of each engine entry point whichever version ran; the
+kernel modules' `launches` count CUDA launches only.  Both count under
+a lock (`build.bump`): a server's pool threads execute queries at the
+same time.
 
 Each engine entry point calls one `torch.library.custom_op` of the
 `repro_torch` namespace (`torch.ops.repro_torch.<entry>`), so that the engine's bind-many pass
@@ -37,11 +39,12 @@ Each engine entry point calls one `torch.library.custom_op` of the
 carry it: the op's implementation packs the scalar call's outputs (the
 kernel's launch on CUDA tensors, the plain version on CPU ones), and its
 vmap rule is the batched call (`compact_batched`, `compact_pred_batched`,
-`filter_agg_batched`, `selective_filter_agg_batched`: one launch for B
-bindings on the card, with each operand's binding stride 0 where vmap
-left it unbatched; the batched plain version on the CPU).  A call with
-no batched operand (the scalar walk, or a call under vmap whose
-operands do not depend on the bindings) is the scalar call once, made
+`filter_agg_batched`, `selective_filter_agg_batched`,
+`dense_agg_batched_packed`: one launch for B bindings on the card, with
+each operand's binding stride 0 where vmap left it unbatched; the
+batched plain version on the CPU).  A call with no batched operand (the
+scalar walk, or a call under vmap whose operands do not depend on the
+bindings) is the scalar call once, made
 by the entry point itself (`_batched`), its result shared by every
 binding, so the op itself runs only under vmap on the engine's path.
 An op returns one packed tensor (its outputs may not alias each other),
@@ -58,12 +61,14 @@ import torch
 
 from repro_torch.kernels import build, codegen
 from repro_torch.kernels import compact as _kc
+from repro_torch.kernels import dense_agg as _kd
 from repro_torch.kernels import filter_agg as _kf
 
 # by name from the modules: the package exports this module's functions
 # under the modules' own names (`compact`, `filter_agg`, `gather_join`)
 from repro_torch.kernels.compact import compact as _compact
 from repro_torch.kernels.compact import compact_pred as _compact_pred
+from repro_torch.kernels.dense_agg import dense_agg as _dense_agg
 from repro_torch.kernels.filter_agg import filter_agg as _filter_agg
 from repro_torch.kernels.filter_agg import \
     selective_filter_agg as _selective_filter_agg
@@ -73,10 +78,10 @@ from repro_torch.kernels.topk import masked_topk
 __all__ = ["filter_agg", "gather_join", "masked_topk", "filter_agg_query",
            "compact", "compact_translate", "compact_pred", "compact_query",
            "compact_pred_query", "selective_filter_agg",
-           "selective_agg_query", "calls"]
+           "selective_agg_query", "dense_agg_query", "calls"]
 
 calls = {"filter_agg": 0, "compact": 0, "compact_pred": 0,
-         "selective_agg": 0}
+         "selective_agg": 0, "dense_agg": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +236,21 @@ def _selective_agg_vmap(info, in_dims, fn, cols, fp, ip, kinds, n_groups):
         _kinds(kinds), pred_fn, value_fns, gidx_fn, n_groups), 0
 
 
+@torch.library.custom_op("repro_torch::dense_agg", mutates_args=())
+def _dense_agg_op(mask: torch.Tensor, gidx: torch.Tensor,
+                  values: list[torch.Tensor], carries: list[torch.Tensor],
+                  n_groups: int) -> torch.Tensor:
+    return _kd.pack(*_dense_agg(mask, gidx, values, carries, n_groups))
+
+
+@_dense_agg_op.register_vmap
+def _dense_agg_vmap(info, in_dims, mask, gidx, values, carries, n_groups):
+    return _kd.dense_agg_batched_packed(
+        _lead(mask, in_dims[0]), _lead(gidx, in_dims[1]),
+        [_lead(v, d) for v, d in zip(values, in_dims[2])],
+        [_lead(c, d) for c, d in zip(carries, in_dims[3])], n_groups), 0
+
+
 # ---------------------------------------------------------------------------
 # the engine's entry points
 # ---------------------------------------------------------------------------
@@ -299,3 +319,22 @@ def selective_agg_query(cols, scalars, pred_fn, value_fns, gidx_fn,
     row = _selective_agg_op(fn, list(cols.values()), fp, ip,
                             ",".join(kinds), int(n_groups))
     return _kf.agg_unpack(row, int(n_groups), len(value_fns))
+
+
+def dense_agg_query(mask, gidx, value_cols, carry_cols, n_groups):
+    """Dense aggregation over a large key domain in one kernel pass: the
+    float32 sums of 1-D float32 value columns, the row counts and the
+    max of 1-D int32 or float32 carry columns per group.  Returns (sums
+    [(G,)], counts (G,) int32, carried [(G,)]), every count exact.
+    Unlike the other entry points the engine calls it directly, not
+    through `StageCtx.kernel`: it takes no runtime parameter, so a
+    captured walk replays its launches inside the segment
+    (`core/graphs.py`) and calls it only while capturing."""
+    build.bump(calls, "dense_agg")
+    gidx = gidx.to(torch.int32)
+    if not _batched(mask, gidx, *value_cols, *carry_cols):
+        return _dense_agg(mask, gidx, value_cols, carry_cols, n_groups)
+    row = _dense_agg_op(mask, gidx, list(value_cols), list(carry_cols),
+                        int(n_groups))
+    return _kd.unpack(row, int(n_groups), len(value_cols),
+                      _kd.kinds(carry_cols))

@@ -29,6 +29,7 @@ pytestmark = pytest.mark.cuda
 # and gather_join
 kc = importlib.import_module("repro_torch.kernels.compact")
 kf = importlib.import_module("repro_torch.kernels.filter_agg")
+kd = importlib.import_module("repro_torch.kernels.dense_agg")
 kg = importlib.import_module("repro_torch.kernels.gather_join")
 kt = importlib.import_module("repro_torch.kernels.topk")
 
@@ -800,12 +801,15 @@ def test_sharded_query_on_card_matches_unsharded(cuda, sdb, two_slots,
         preset("opt-pallas"), shards=2))
     assert cq.n_shards == 2
     calls = sum(kops.calls.values())
-    launches = sum(kc.launches.values()) + sum(kf.launches.values())
+
+    def launched():
+        return sum(sum(m.launches.values()) for m in (kc, kf, kd))
+
+    launches = launched()
     for _ in range(2):
         assert_same(cq.run(), want, qname in SORT_INSENSITIVE)
     assert cq.n_overflows == 0
-    assert (sum(kc.launches.values()) + sum(kf.launches.values())
-            - launches) == sum(kops.calls.values()) - calls
+    assert launched() - launches == sum(kops.calls.values()) - calls
     (out0, mask0, _), (out1, mask1, _) = cq.execute_shards(cq.bind())
     assert torch.equal(mask0, mask1.to(mask0.device))
     for k in out0:

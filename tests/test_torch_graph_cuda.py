@@ -13,7 +13,8 @@ sum PyTorch adds with atomics, at `opt`), every float within 1e-4 of
 the eager walk's (two eager walks of q1 at `opt` differ by 1.3e-5).
 The engine's entry points are counted as they are called (`ops.calls`)
 and their kernels as they launch (each kernel module's `launches`): a
-replayed run moves them as an eager run does."""
+replayed run moves them as an eager run does, but for the large-domain
+aggregation's entry point, whose kernel the graph holds."""
 import importlib
 import sys
 import threading
@@ -139,8 +140,11 @@ def test_replay_gives_the_eager_walks_answer(db, qname, rung):
     eager_calls = _delta(lambda: _eager(cq))
     replay_calls = _delta(cq.run)
     assert cq.n_replays == replays + 1
-    # the same entry points called and kernels launched, once a run each
-    assert replay_calls == eager_calls
+    # the same entry points called and kernels launched, once a run each,
+    # but for the large-domain aggregation: captured inside a segment, a
+    # replay launches it without calling its entry point
+    assert replay_calls == {k: v for k, v in eager_calls.items()
+                            if k != ("ops", "dense_agg")}
     if rung == "opt":
         assert not eager_calls
     for _ in range(2):
