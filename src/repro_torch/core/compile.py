@@ -25,10 +25,17 @@ above the point's planned capacity means the static bucket dropped rows,
 so `run` discards the outputs and re-executes through the lazily built
 *uncompacted twin* of the same logical plan — compaction is a performance
 bet whose worst case is latency, never wrong results.  The counts are
-also accumulated per query (`observed_max`, underuse streaks) and
-harvested by `PlanCache`'s feedback store, which re-plans capacities
-from measured headroom after repeated overflows and shrinks them after
-sustained underuse.
+also recorded per query (`observations`: the all-time max per point,
+underuse streaks; `core/observations.py`) and harvested by `PlanCache`'s
+feedback store, which re-plans capacities from measured headroom after
+repeated overflows and shrinks them after sustained underuse.
+
+After the walk, every run mode (the scalar walks, their graph replay, a
+batched pass, `CompiledQueryBatch`) settles through one pipeline
+(`_settle`): the point counts of all its walks are read in one copy
+(`_counts_to_host`) and recorded, the frames of the bindings that fit
+are copied to the host (`_to_host`), each answer is decoded, and the
+bindings that overflowed re-run through the twin.
 
 Bind-many: `run_many(bindings_list)` runs N bindings as batched passes
 of at most BATCH_MAX bindings, each ONE staged walk under
@@ -69,19 +76,20 @@ counterpart of the reference's `shard_map`); the collectives combine in
 rank order, so every shard's output is the same, and shard 0's is the
 result.  Each point's count is an `(n_shards,)` vector, read in the same
 one device-to-host copy; overflow and the scalar feedback key off the
-worst shard, and `observed_shard` keeps the per-shard maxima.  A
-sharded batched pass (`run_many`, `run_batched`, `execute_many`) runs
-one staged walk under `torch.func.vmap` in each shard's thread, the
-counterpart of the reference's `shard_wrap(fn_many)`: the parameter
-vectors are bound once (and copied once to each other device of the
-mesh), every shard maps them over its own blocks, and its collectives
-go through their vmap rule (`core/backend.py`), which exchanges plain
-tensors with the bindings in front.  Each point's counts come out as an
-`(N, n_shards)` tensor; each slot's overflow keys off its worst shard,
-and `observed_shard` takes the elementwise max over the slots.  Each
-shard's block of a partitioned input is an allocation of its own, so
-every block starts aligned as an unsharded column does and the batched
-kernels take the same route on every shard.
+worst shard, and the record keeps the per-shard maxima
+(`observed_shard`).  A sharded batched pass (`run_many`, `run_batched`,
+`execute_many`) runs one staged walk under `torch.func.vmap` in each
+shard's thread, the counterpart of the reference's
+`shard_wrap(fn_many)`: the parameter vectors are bound once (and copied
+once to each other device of the mesh), every shard maps them over its
+own blocks, and its collectives go through their vmap rule
+(`core/backend.py`), which exchanges plain tensors with the bindings in
+front.  Each point's counts come out as an `(N, n_shards)` tensor; each
+slot's overflow keys off its worst shard, and `observed_shard` takes the
+elementwise max over the slots.  Each shard's block of a partitioned
+input is an allocation of its own, so every block starts aligned as an
+unsharded column does and the batched kernels take the same route on
+every shard.
 """
 from __future__ import annotations
 
@@ -99,7 +107,10 @@ from repro_torch.core.backend import TorchBackend
 from repro_torch.core.expr import Param
 from repro_torch.core.mesh import AXIS, data_mesh, resolve_shards
 from repro_torch.core.operators import StageCtx, frame_nrows
-from repro_torch.core.passes.param_binding import plan_params
+from repro_torch.core.observations import Observations, read
+from repro_torch.core.passes.param_binding import (check_bindings,
+                                                   param_layout,
+                                                   runtime_params)
 from repro_torch.core.passes.pipeline import Settings, optimize
 from repro_torch.core.spans import span
 from repro_torch.relational.loader import Database
@@ -159,6 +170,10 @@ class CompiledQuery:
     # tiering.Runnable surface: a batch is vmapped staged walks (or
     # scalar ones below BATCH_MIN), never padded
     pads_batches = False
+    n_executions = read("n_executions")     # one a walk, replay or pass
+    n_overflows = read("n_overflows")       # one an overflowed binding
+    observed_max = read("observed_max")
+    observed_shard = read("observed_shard")
 
     def __init__(self, plan: ir.Plan, db: Database, settings: Settings,
                  params: Optional[dict] = None,
@@ -211,9 +226,8 @@ class CompiledQuery:
         self._pristine = pristine if real else None
         self._fallback: Optional["CompiledQuery"] = None
         self._fallback_lock = threading.Lock()
-        self.n_overflows = 0      # executions (or batch slots) that fell back
-        # staged walks run by run() / run_many(): one a batched pass
-        self.n_executions = 0
+        # the run counters and the feedback state PlanCache harvests
+        self.observations = Observations(self.point_caps)
         # the scalar walk captured as CUDA graphs by compile() (unsharded,
         # on CUDA; `core/graphs.py`), the runs that replayed it, and why
         # its capture raised where it did.  One replay at a time: a run
@@ -222,17 +236,6 @@ class CompiledQuery:
         self._replay_lock = threading.Lock()
         self.n_replays = 0
         self.capture_error: Optional[str] = None
-        # feedback state, harvested by PlanCache: the all-time max true
-        # count per point, and the current run of consecutive executions
-        # with every point under a quarter of its capacity, with its
-        # window max
-        self._obs_lock = threading.Lock()
-        self.observed_max: dict[str, int] = {}
-        # per-shard all-time max vectors (shape (n_shards,)) — a sharded
-        # walk reports every point's count per shard
-        self.observed_shard: dict[str, np.ndarray] = {}
-        self.under_streak = 0
-        self.streak_max: dict[str, int] = {}
         self._cache_key: Optional[tuple] = None   # set by PlanCache
         self.compile_time: Optional[float] = None
         # sharded execution: the Sharding pass resolved the same settings
@@ -244,18 +247,8 @@ class CompiledQuery:
         self._shard_plan = db.shard_plan(self.n_shards) \
             if self._mesh is not None else None
 
-        spec = plan_params(self.plan)
-        structural = sorted(n for n, i in spec.items() if i.structural)
-        if structural:
-            raise TypeError(
-                f"compile-time parameters {structural} are unresolved; "
-                "bind them via optimize(..., bindings=...)")
-        self.param_spec: dict[str, str] = {n: i.dtype for n, i in spec.items()}
-        self.param_defaults = {n: (params or {})[n] for n in self.param_spec
-                               if n in (params or {})}
-        missing = sorted(set(self.param_spec) - set(self.param_defaults))
-        if missing:
-            raise KeyError(f"no binding supplied for parameters {missing}")
+        self.param_spec, self.param_defaults = runtime_params(
+            self.plan, params, "optimize(..., bindings=...)")
 
         # 1. collection walk (CPU, 8-row samples): registers inputs and
         #    output schema; every static decision is exercised here.
@@ -378,24 +371,11 @@ class CompiledQuery:
         """Input dict for one execution: the resident columns plus the
         per-execution parameter scalars.  A non-None `params` must name
         *every* runtime parameter."""
-        merged = self._check_bindings(params)
+        merged = check_bindings(self, params)
         inputs = dict(self.resident)
         for name, dtype in self.param_spec.items():
             inputs[f"param/{name}"] = np.asarray(merged[name], dtype=dtype)
         return inputs
-
-    def _check_bindings(self, params: Optional[dict]) -> dict:
-        if params is None:
-            return self.param_defaults
-        unknown = sorted(set(params) - set(self.param_spec))
-        if unknown:
-            raise KeyError(f"unknown parameters {unknown}; this plan "
-                           f"takes {sorted(self.param_spec)}")
-        missing = sorted(set(self.param_spec) - set(params))
-        if missing:
-            raise KeyError(f"no binding supplied for parameters "
-                           f"{missing}")
-        return params
 
     # -- execution -------------------------------------------------------------
     def execute(self, inputs: dict):
@@ -405,13 +385,7 @@ class CompiledQuery:
         `(n_shards,)` vector."""
         if self._mesh is None:
             return self._walk(inputs, self.device)
-        shards = self.execute_shards(inputs)
-        out, mask, counts = shards[0]
-        dev = self._mesh.devices[0]
-        return out, mask, {
-            pid: torch.stack([torch.as_tensor(s[2][pid], device=dev)
-                              .reshape(()) for s in shards])
-            for pid in counts}
+        return self._shard_zero(self.execute_shards(inputs))
 
     def execute_shards(self, inputs: dict) -> list:
         """The sharded staged walk: every shard's (columns, mask, counts),
@@ -422,6 +396,18 @@ class CompiledQuery:
         return self._mesh.run(
             lambda rank, group, inp: self._walk(inp, devs[rank], group, rank),
             per)
+
+    def _shard_zero(self, shards: list) -> tuple:
+        """Shard 0's columns and mask (every shard's are the same) and
+        each point's counts of every shard on its device, the shards
+        last: `(n_shards,)` from scalar walks, `(N, n_shards)` from
+        batched ones (the mask's leading shape)."""
+        out, mask, counts = shards[0]
+        dev = self._mesh.devices[0]
+        return out, mask, {
+            pid: torch.stack([torch.as_tensor(s[2][pid], device=dev)
+                              .reshape(mask.shape[:-1]) for s in shards], -1)
+            for pid in counts}
 
     def _walk(self, inputs: dict, device, group=None, rank: int = 0,
               token=None, engine=None):
@@ -458,164 +444,33 @@ class CompiledQuery:
                 self._pristine = None   # handed over (passes mutated it)
             return self._fallback
 
-    def _merge_twin_observations(self, twin: "CompiledQuery") -> None:
-        """Fold the twin's measured true counts into this query's
-        observation state, where PlanCache's feedback step harvests
-        them.  Max-merge: idempotent across repeated fallbacks."""
-        with twin._obs_lock:
-            obs = dict(twin.observed_max)
-        with self._obs_lock:
-            for pid, c in obs.items():
-                if c > self.observed_max.get(pid, -1):
-                    self.observed_max[pid] = c
-
-    def _observe(self, slot_counts: list[dict], n_overflows: int,
-                 executions: int) -> None:
-        """Feedback accounting for a list of per-execution (or per-slot)
-        true-count dicts, `n_overflows` of which overflowed, from
-        `executions` staged walks: the execution and overflow counters,
-        the all-time max per point, plus the consecutive-underuse streak
-        and its window max (the shrink signal decays: a historical spike
-        must not pin capacity up).  Under the lock: a server runs one
-        query from several threads."""
-        with self._obs_lock:
-            self.n_executions += executions
-            self.n_overflows += n_overflows
-            for counts in slot_counts:
-                oflow = False
-                under = any(pid in self.point_caps for pid in counts)
-                for pid, c in counts.items():
-                    if c > self.observed_max.get(pid, -1):
-                        self.observed_max[pid] = c
-                    cap = self.point_caps.get(pid)
-                    if cap is None:     # measure-only probe: count only
-                        continue
-                    if c > cap:
-                        oflow = True
-                    if 4 * c >= cap:
-                        under = False
-                if oflow or not under:
-                    self.under_streak = 0
-                    self.streak_max = {}
-                else:
-                    self.under_streak += 1
-                    for pid, c in counts.items():
-                        if c > self.streak_max.get(pid, -1):
-                            self.streak_max[pid] = c
-
-    def _overflowed(self, counts: dict) -> bool:
-        return any(c > self.point_caps[pid] for pid, c in counts.items()
-                   if pid in self.point_caps)
-
-    def _counts_to_host(self, runs: list[dict]) -> list[dict]:
-        """Every run's point counts on the host, in ONE device-to-host
-        copy for all of them (a copy each would wait on the device once a
-        point): Python ints, or under a mesh `(n_shards,)` int64 arrays.
-        A count can be a CPU scalar (a measure-only point over a frame
-        with no mask)."""
-        flat = [torch.as_tensor(c, device=self.device).reshape(-1)
-                .to(torch.int64) for counts in runs for c in counts.values()]
-        if not flat:
-            return [{} for _ in runs]
-        with span("repro.counts"):
-            vals = torch.cat(flat).cpu().numpy()
-        k, at, out = self.n_shards, 0, []
-        for counts in runs:
-            got = {}
-            for pid in counts:
-                v = vals[at:at + k]
-                got[pid] = v if k > 1 else int(v[0])
-                at += k
-            out.append(got)
-        return out
-
-    def _observe_shards(self, runs: list[dict]) -> None:
-        """Elementwise-max merge of per-shard count vectors (shape
-        (n_shards,)) into the all-time per-shard state."""
-        with self._obs_lock:
-            for vecs in runs:
-                for pid, v in vecs.items():
-                    old = self.observed_shard.get(pid)
-                    self.observed_shard[pid] = \
-                        v.copy() if old is None else np.maximum(old, v)
-
-    def _result(self, out, mask) -> dict[str, np.ndarray]:
-        return _decode_frame(*_to_host(out, mask), self.out_meta)
-
-    def _account(self, counts: list[dict], executions: int) -> list[int]:
-        """Observe the point counts of the bindings of `executions`
-        staged walks (`counts`: one dict a binding, on the host) and
-        return the bindings whose capacity bucket overflowed.  Under a
-        mesh the per-shard vectors are kept in `observed_shard`, and the
-        rest keys off the worst shard."""
-        if self.n_shards > 1:
-            self._observe_shards(counts)
-            counts = [{pid: int(v.max()) for pid, v in c.items()}
-                      for c in counts]
-        bad = [i for i, c in enumerate(counts) if self._overflowed(c)]
-        self._observe(counts, len(bad), executions)
-        return bad
-
-    def _settle(self, bindings_list: list, runs: list,
-                counts: list[dict]) -> list[dict[str, np.ndarray]]:
-        """The results of `runs`, this query's staged walks under
-        `bindings_list`, whose point counts `counts` are on the host:
-        the counts are observed, every slot whose capacity bucket
-        overflowed re-runs uncompacted through the twin (its compacted
-        frames dropped rows; the twin's probes report every site's TRUE
-        count, folded back for the feedback store), and the rest are
-        decoded."""
-        bad = self._account(counts, len(runs))
-        results = [None if i in bad else self._result(out, mask)
-                   for i, (out, mask, _c) in enumerate(runs)]
-        return self._rerun(bindings_list, bad, results)
-
-    def _rerun(self, bindings_list: list, bad: list[int],
-               results: list) -> list:
-        """Fill the overflowing slots `bad` of `results` from the twin:
-        one `run_many` of their bindings (the compacted frames dropped
-        rows; the twin's probes report every site's TRUE count, folded
-        back for the feedback store)."""
-        if bad:
-            with span("repro.rerun"):
-                twin = self._fallback_query()
-                redo = twin.run_many([bindings_list[i] for i in bad])
-            self._merge_twin_observations(twin)
-            for i, r in zip(bad, redo):
-                results[i] = r
-        return results
-
     def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
         """One binding through the scalar staged walk (parameters as host
         scalars), replayed where `compile()` captured it."""
         return self._walks([params])[0]
 
     def _walks(self, bindings_list: list) -> list[dict[str, np.ndarray]]:
-        """One scalar staged walk a binding, enqueued back to back, their
-        point counts read in one copy, then settled.  A lone binding
-        replays the captured walk where there is one and no other run is
-        replaying it."""
+        """One scalar staged walk a binding, enqueued back to back, then
+        settled.  A lone binding replays the captured walk where there is
+        one and no other run is replaying it."""
         if len(bindings_list) == 1 and self._graph is not None \
                 and self._replay_lock.acquire(blocking=False):
             return [self._replayed(bindings_list[0])]
-        runs = [self.execute(self.bind(b)) for b in bindings_list]
-        return self._settle(bindings_list, runs, self._counts_to_host(
-            [c for *_f, c in runs]))
+        return self._settle(
+            bindings_list, [self.execute(self.bind(b)) for b in bindings_list])
 
     def _replayed(self, params: Optional[dict]) -> dict[str, np.ndarray]:
         """`run(params)` through the captured walk.  The caller holds
         `_replay_lock`; it is released once the counts and the result are
         on the host, since the next replay writes the same tensors."""
+        release = self._replay_lock.release
         try:
-            out, mask, counts = self._graph.replay(
-                self._check_bindings(params))
+            run = self._graph.replay(check_bindings(self, params))
             self.n_replays += 1
-            bad = self._account(self._counts_to_host([counts]), 1)
-            host = None if bad else _to_host(out, mask)
-        finally:
-            self._replay_lock.release()
-        result = None if bad else _decode_frame(*host, self.out_meta)
-        return self._rerun([params], bad, [result])[0]
+        except BaseException:
+            release()
+            raise
+        return self._settle([params], [run], release=release)[0]
 
     def run_many(self, bindings_list) -> list[dict[str, np.ndarray]]:
         """N bindings as batched passes (the module docstring): each pass
@@ -630,7 +485,7 @@ class CompiledQuery:
         A plan with no runtime parameters runs once and returns
         independent copies (a caller may mutate its result in place)."""
         bindings_list = list(bindings_list)
-        merged = [self._check_bindings(b) for b in bindings_list]
+        merged = [check_bindings(self, b) for b in bindings_list]
         if not bindings_list:
             return []
         if not self.param_spec:
@@ -655,39 +510,26 @@ class CompiledQuery:
         if not self.param_spec:
             raise ValueError("a batched pass needs runtime parameters")
         return self._pass(bindings_list,
-                          [self._check_bindings(b) for b in bindings_list])
+                          [check_bindings(self, b) for b in bindings_list])
 
     def _pass(self, bindings_list: list, merged: list[dict]) -> list:
         """One batched pass of the bindings (`merged`: their checked
-        values), settled: the slots that overflowed re-run through the
-        twin."""
-        out, mask, counts = self.execute_many(self.bind_many(merged))
-        bad = self._account(self._batch_counts_to_host(counts, len(merged)),
-                            1)
-        good = sorted(set(range(len(merged))) - set(bad))
-        results: list = [None] * len(merged)
-        for i, r in zip(good, self._results_many(out, mask, good)):
-            results[i] = r
-        del out, mask
-        return self._rerun(bindings_list, bad, results)
+        values), settled."""
+        return self._settle(bindings_list,
+                            [self.execute_many(self.bind_many(merged))])
 
     def bind_many(self, merged: list[dict]) -> dict:
         """The `param/<name>` inputs of a batched pass: each parameter's
         (N,) vector of its dtype, on the query's device, from one
-        host-to-device copy of every parameter's bytes (wider dtypes
-        first, so that each vector starts aligned to its item)."""
-        names = sorted(self.param_spec,
-                       key=lambda n: -np.dtype(self.param_spec[n]).itemsize)
-        arrays = [np.asarray([m[n] for m in merged],
-                             dtype=self.param_spec[n]) for n in names]
-        raw = torch.from_numpy(np.concatenate(
-            [a.view(np.uint8) for a in arrays])).to(self.device)
-        out, at = {}, 0
-        for name, a in zip(names, arrays):
-            out[f"param/{name}"] = raw[at:at + a.nbytes].view(
-                getattr(torch, a.dtype.name))
-            at += a.nbytes
-        return out
+        host-to-device copy of every parameter's bytes (`param_layout`)."""
+        layout, size = param_layout(self.param_spec, len(merged))
+        host = np.empty(size, dtype=np.uint8)
+        for name, dt, at in layout:
+            host[at:at + len(merged) * dt.itemsize].view(dt)[:] = \
+                np.asarray([m[name] for m in merged], dtype=dt)
+        raw = torch.from_numpy(host).to(self.device)
+        return {f"param/{name}": raw[at:at + len(merged) * dt.itemsize]
+                .view(getattr(torch, dt.name)) for name, dt, at in layout}
 
     def execute_many(self, pvec: dict):
         """The batched staged walk over `bind_many`'s parameter vectors:
@@ -701,13 +543,7 @@ class CompiledQuery:
             return torch.func.vmap(
                 lambda p: self._walk({**resident, **p}, self.device),
                 randomness="error")(pvec)
-        shards = self.execute_shards_many(pvec)
-        out, mask, counts = shards[0]
-        dev = self._mesh.devices[0]
-        return out, mask, {
-            pid: torch.stack([torch.as_tensor(s[2][pid], device=dev)
-                              for s in shards], 1)
-            for pid in counts}
+        return self._shard_zero(self.execute_shards_many(pvec))
 
     def execute_shards_many(self, pvec: dict) -> list:
         """The sharded batched walk: every shard's (columns, mask,
@@ -727,33 +563,68 @@ class CompiledQuery:
                 randomness="error")(on[dev])
         return self._mesh.run(shard, self.shard_resident)
 
-    def _batch_counts_to_host(self, counts: dict, n: int) -> list[dict]:
-        """Every slot's point counts from the batched walk's (N,) vectors
-        ((N, n_shards) under a mesh) in ONE device-to-host copy: Python
-        ints, or under a mesh `(n_shards,)` int64 arrays."""
-        if not counts:
-            return [{} for _ in range(n)]
-        k = self.n_shards
+    def _counts_to_host(self, runs: list) -> list[dict]:
+        """The point counts of every binding of `runs` (this query's
+        staged walks: a scalar walk is one binding, a batched pass one a
+        slot of its leading axis) on the host, in ONE device-to-host copy
+        for all of them (a copy each would wait on the device once a
+        point): one dict a binding, in order, of Python ints, or under a
+        mesh `(n_shards,)` int64 arrays.  A count can be a CPU scalar (a
+        measure-only point over a frame with no mask)."""
+        sizes = [_bindings(mask) for _out, mask, _c in runs]
+        flat = [torch.as_tensor(c, device=self.device).reshape(-1)
+                .to(torch.int64) for *_f, counts in runs
+                for c in counts.values()]
+        if not flat:
+            return [{} for _ in range(sum(sizes))]
         with span("repro.counts"):
-            vals = torch.stack([torch.as_tensor(c, device=self.device)
-                                .reshape(n, k).to(torch.int64)
-                                for c in counts.values()]).cpu().numpy()
-        return [{pid: vals[j, i] if k > 1 else int(vals[j, i, 0])
-                 for j, pid in enumerate(counts)} for i in range(n)]
+            vals = torch.cat(flat).cpu().numpy()
+        k, at, out = self.n_shards, 0, []
+        for (*_f, counts), n in zip(runs, sizes):
+            got = [{} for _ in range(n)]
+            for pid in counts:
+                v = vals[at:at + n * k].reshape(n, k)
+                for i in range(n):
+                    got[i][pid] = v[i] if k > 1 else int(v[i, 0])
+                at += n * k
+            out += got
+        return out
 
-    def _results_many(self, out: dict, mask, slots: list[int]) -> list:
-        """The decoded results of the batched walk's `slots`.  A frame
-        the result copy would cut on the device is cut a slot at a time;
-        a smaller one is copied whole, every slot at once."""
-        if not slots:
-            return []
-        if mask.shape[1] > DEVICE_SELECT_ROWS:
-            return [self._result({k: v[i] for k, v in out.items()}, mask[i])
-                    for i in slots]
-        with span("repro.result.copy"):
-            host, hmask = whole_to_host(out, mask)
-        return [_decode_frame({k: v[i] for k, v in host.items()}, hmask[i],
-                              self.out_meta) for i in slots]
+    def _settle(self, bindings_list: list, runs: list,
+                counts: Optional[list] = None,
+                release=None) -> list[dict[str, np.ndarray]]:
+        """The results of `runs`, this query's staged walks under
+        `bindings_list` (one scalar walk a binding, or one batched pass of
+        them all), whose point counts are `counts` (read here, in one
+        copy, if None).  In order: the counts are recorded; the frames of
+        the bindings that fit are copied to the host and `runs` is
+        emptied, so that their device memory is free before a re-run;
+        `release` is called, also where a step before it raised; each of
+        those bindings is decoded; and every binding whose capacity bucket
+        overflowed (its compacted frames dropped rows) re-runs uncompacted
+        in one `run_many` of the twin, whose probes report every site's
+        TRUE count, folded back for the feedback store."""
+        try:
+            if counts is None:
+                counts = self._counts_to_host(runs)
+            bad = self.observations.record(counts, len(runs))
+            host = _frames_to_host(runs, bad)
+            runs.clear()
+        finally:
+            if release is not None:
+                release()
+        good = [i for i in range(len(bindings_list)) if i not in bad]
+        results: list = [None] * len(bindings_list)
+        for i, (cols, mask) in zip(good, host):
+            results[i] = _decode_frame(cols, mask, self.out_meta)
+        if bad:
+            with span("repro.rerun"):
+                twin = self._fallback_query()
+                redo = twin.run_many([bindings_list[i] for i in bad])
+            self.observations.merge(twin.observations)
+            for i, r in zip(bad, redo):
+                results[i] = r
+        return results
 
     def input_nbytes(self) -> int:
         return int(sum(v.nbytes for v in self.inputs.values()))
@@ -796,8 +667,7 @@ class CompiledQueryBatch:
 
     def run(self) -> list[dict[str, np.ndarray]]:
         runs = [q.execute(q.bind()) for q in self.queries]
-        counts = self.queries[0]._counts_to_host(
-            [c for *_f, c in runs]) if self.queries else []
+        counts = self.queries[0]._counts_to_host(runs) if runs else []
         return [q._settle([None], [r], [c])[0]
                 for q, r, c in zip(self.queries, runs, counts)]
 
@@ -810,13 +680,49 @@ def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
         and a.tobytes() == b.tobytes()
 
 
-def _to_host(out, mask):
-    """The result's columns and mask on the host: cut to the valid rows on
-    the device where the frame is large (`DEVICE_SELECT_ROWS`)."""
-    copy = valid_rows_to_host if mask.shape[0] > DEVICE_SELECT_ROWS \
-        else whole_to_host
+def _bindings(mask) -> int:
+    """The bindings of a staged walk whose result mask is `mask`: a
+    batched pass's leading axis, or a scalar walk's one."""
+    return mask.shape[0] if mask.dim() > 1 else 1
+
+
+def _frames_to_host(runs: list, bad: list[int]) -> list[tuple]:
+    """(columns, mask) on the host of every binding of `runs` (numbered
+    as `_counts_to_host` numbers them) that is not in `bad`, in order."""
+    host, at = [], 0
+    for out, mask, _c in runs:
+        n = _bindings(mask)
+        keep = [i for i in range(n) if at + i not in bad]
+        if mask.dim() == 1:     # a scalar walk's frame has no binding axis
+            keep = [None] * len(keep)
+        host += _to_host(out, mask, keep)
+        at += n
+    return host
+
+
+def _to_host(out: dict, mask, slots: list) -> list[tuple]:
+    """The bindings `slots` of a result frame, each as (columns, mask) on
+    the host: indices into the binding axis in front, or [None] for a
+    scalar walk's frame, which has none.  A frame of more than
+    `DEVICE_SELECT_ROWS` rows is cut to each binding's valid rows on the
+    device (`valid_rows_to_host`); a smaller one is copied whole, every
+    binding at once (`whole_to_host`)."""
+    if not slots:
+        return []
     with span("repro.result.copy"):
-        return copy(out, mask)
+        if mask.shape[-1] > DEVICE_SELECT_ROWS:
+            return [valid_rows_to_host(*_binding(out, mask, i))
+                    for i in slots]
+        cols, hmask = whole_to_host(out, mask)
+    return [_binding(cols, hmask, i) for i in slots]
+
+
+def _binding(cols: dict, mask, i) -> tuple:
+    """Binding `i`'s columns and mask of a frame with the binding axis in
+    front; the frame's own for None."""
+    if i is None:
+        return cols, mask
+    return {k: v[i] for k, v in cols.items()}, mask[i]
 
 
 def valid_rows_to_host(out, mask):

@@ -53,6 +53,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.passes.param_binding import param_layout
 from repro_torch.core.spans import span
 
 log = logging.getLogger(__name__)
@@ -242,9 +243,7 @@ class WalkGraph:
     the walk reads each parameter as a 0-d view (`params`)."""
 
     def __init__(self, spec: dict, device):
-        # wider dtypes first, so that each view starts aligned to its item
-        names = sorted(spec, key=lambda n: -np.dtype(spec[n]).itemsize)
-        size = sum(np.dtype(spec[n]).itemsize for n in names)
+        layout, size = param_layout(spec)
         self._host = torch.empty(size, dtype=torch.uint8)
         if size:
             self._host = self._host.pin_memory()
@@ -252,13 +251,10 @@ class WalkGraph:
         raw = self._host.numpy()
         self._slots: dict = {}              # name -> (dtype, host view)
         self.params: dict = {}              # name -> 0-d device view
-        at = 0
-        for n in names:
-            dt = np.dtype(spec[n])
+        for n, dt, at in layout:
             self._slots[n] = (dt, raw[at:at + dt.itemsize].view(dt))
             self.params[n] = self._dev[at:at + dt.itemsize].view(
                 getattr(torch, dt.name)).reshape(())
-            at += dt.itemsize
         self.segments: list = []
         self._held: list = []               # every graph, empty ones too
         self.calls: list[CallNode] = []

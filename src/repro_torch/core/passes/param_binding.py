@@ -23,6 +23,9 @@ to split a binding dict into the two classes.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import numpy as np
 
 from repro_torch.core import ir
 from repro_torch.core.expr import Param, StrContainsWord, StrEq, StrIn, \
@@ -105,6 +108,56 @@ def bind_plan(plan: ir.Plan, bindings: dict) -> ir.Plan:
                 and node.n.name in bindings:
             node.n = int(bindings[node.n.name])
     return plan
+
+
+def runtime_params(plan: ir.Plan, params: Optional[dict],
+                   bind_hint: str) -> tuple[dict, dict]:
+    """(dtype, construction-time binding) of each runtime parameter of
+    `plan`, by name.  Its compile-time parameters must be substituted
+    already (`bind_hint` says where, in the error), and `params` must
+    bind every runtime one."""
+    spec = plan_params(plan)
+    structural = sorted(n for n, i in spec.items() if i.structural)
+    if structural:
+        raise TypeError(f"compile-time parameters {structural} are "
+                        f"unresolved; bind them via {bind_hint}")
+    dtypes = {n: i.dtype for n, i in spec.items()}
+    defaults = {n: (params or {})[n] for n in dtypes if n in (params or {})}
+    missing = sorted(set(dtypes) - set(defaults))
+    if missing:
+        raise KeyError(f"no binding supplied for parameters {missing}")
+    return dtypes, defaults
+
+
+def check_bindings(runnable, params: Optional[dict]) -> dict:
+    """The binding a run of `runnable` (its `param_spec` and
+    `param_defaults`) takes for `params`: None means the construction-
+    time bindings; a dict must name every runtime parameter (a partial
+    dict would silently mix two requests) and no other."""
+    if params is None:
+        return runnable.param_defaults
+    unknown = sorted(set(params) - set(runnable.param_spec))
+    if unknown:
+        raise KeyError(f"unknown parameters {unknown}; this plan "
+                       f"takes {sorted(runnable.param_spec)}")
+    missing = sorted(set(runnable.param_spec) - set(params))
+    if missing:
+        raise KeyError(f"no binding supplied for parameters {missing}")
+    return params
+
+
+def param_layout(spec: dict, n: int = 1) -> tuple[list, int]:
+    """Where the runtime parameters of `spec` (name -> dtype) sit in one
+    byte buffer of `n` bindings, copied to the device at once:
+    [(name, dtype, byte offset)], wider dtypes first, so that each
+    parameter's n values start aligned to their item, and the buffer's
+    size."""
+    layout, at = [], 0
+    for name in sorted(spec, key=lambda k: -np.dtype(spec[k]).itemsize):
+        dt = np.dtype(spec[name])
+        layout.append((name, dt, at))
+        at += n * dt.itemsize
+    return layout, at
 
 
 class ParamBinding:

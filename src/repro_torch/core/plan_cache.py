@@ -51,7 +51,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import threading
-import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
@@ -64,6 +63,7 @@ from repro_torch.core import persist as persist_mod
 from repro_torch.core import tiering
 from repro_torch.core.compile import CompiledQuery, resolve_device
 from repro_torch.core.mesh import resolve_shards
+from repro_torch.core.observations import Harvest
 from repro_torch.core.passes.compaction import observed_bucket
 from repro_torch.core.passes.param_binding import bind_plan, plan_params
 from repro_torch.core.passes.pipeline import Settings, optimize
@@ -183,10 +183,6 @@ class PlanCache:
         # lets a restarted server prioritize known-hot shapes.
         self._warm_hints: set[tuple] = set()
         self._entries: "OrderedDict[tuple, CompiledQuery]" = OrderedDict()
-        # last-observed n_overflows per live entry (weak: evicted entries
-        # must not pin their resident inputs in memory)
-        self._overflow_seen: "weakref.WeakKeyDictionary[CompiledQuery, int]" \
-            = weakref.WeakKeyDictionary()
         self._caps_memo: dict[tuple, tuple] = {}
         # `_prepare`'s memos, keyed on the plan object's id: each value
         # holds the plan, so an id stays its plan's while the entry lives
@@ -685,23 +681,20 @@ class PlanCache:
 
     def _note_compaction(self, cq: CompiledQuery, n_execs: int) -> None:
         """Compaction accounting for `n_execs` executions just performed on
-        `cq`: compacted executions and overflow fallbacks (watermarked like
-        batch traces, so concurrent callers never double-count), then the
-        adaptive-feedback step."""
+        `cq`: compacted executions and the overflows since the entry's
+        last harvest, then the adaptive-feedback step."""
         if not cq.compaction_points:
             return
+        got = cq.observations.harvest()
         with self._lock:
             self.stats.compactions += n_execs
-            seen = self._overflow_seen.get(cq, 0)
-            delta = max(cq.n_overflows - seen, 0)
-            if delta:
-                self.stats.overflows += delta
-                self._overflow_seen[cq] = cq.n_overflows
-        self._feedback_step(cq, delta)
+            self.stats.overflows += got.overflows
+            self._feedback_step(cq, got)
 
-    def _feedback_step(self, cq: CompiledQuery, overflow_delta: int) -> None:
-        """Close the loop between runtime and planner: merge the entry's
-        measured counts into the plan shape's feedback record, then —
+    def _feedback_step(self, cq: CompiledQuery, got: Harvest) -> None:
+        """Close the loop between runtime and planner (caller holds the
+        lock): merge the entry's harvested counts into the plan shape's
+        feedback record, then —
 
           * after `compact_replan_after` overflows, re-plan the shape with
             capacities derived from the observed max counts (the stale
@@ -719,52 +712,45 @@ class PlanCache:
                 or cq._cache_key is None:
             return
         base = cq._cache_key[:-1]
-        with cq._obs_lock:
-            observed = dict(cq.observed_max)
-            under = cq.under_streak
-            streak_max = dict(cq.streak_max)
-            shard_obs = {pid: v.copy()
-                         for pid, v in cq.observed_shard.items()}
+        fb = self._feedback.get(base)
+        if fb is None:
+            return
         # translate points are exempt from shrink decay: a translate
         # overflow silently drops build rows the probe then misses (wrong
         # answers, not just a fallback re-execution), so their capacity
         # floors at the all-time max (`translate_bucket` in the pass) and
         # the window-max decay below must never touch them
-        streak_max = {pid: c for pid, c in streak_max.items()
+        streak_max = {pid: c for pid, c in got.streak_max.items()
                       if pid not in cq.translate_points}
-        with self._lock:
-            fb = self._feedback.get(base)
-            if fb is None:
-                return
-            for pid, c in observed.items():
-                if c > fb.observed.get(pid, -1):
-                    fb.observed[pid] = c
-            for pid, v in shard_obs.items():
-                old = fb.observed_shard.get(pid)
-                fb.observed_shard[pid] = v if (
-                    old is None or old.shape != v.shape
-                ) else np.maximum(old, v)
-            fb.overflows += overflow_delta
-            if fb.overflows >= s.compact_replan_after:
-                fb.overrides = {**(fb.overrides or {}), **fb.observed}
-                fb.overflows = 0
-                fb.replans += 1
-                self.stats.replans += 1
-                self._retire(cq, base, fb)
-            elif under >= s.compact_shrink_after and streak_max \
-                    and any(observed_bucket(c) < cq.point_caps.get(pid, 0)
-                            for pid, c in streak_max.items()
-                            if pid in cq.point_caps):
-                fb.overrides = {**(fb.overrides or {}), **streak_max}
-                # the shrink is evidence the old maxima are stale: decay
-                # fb.observed to the window max too, or a later re-plan
-                # would resurrect a historical spike and ping-pong the
-                # capacity back up (docs §6: "a historical spike cannot
-                # pin capacity up")
-                fb.observed.update(streak_max)
-                fb.shrinks += 1
-                self.stats.shrinks += 1
-                self._retire(cq, base, fb)
+        for pid, c in got.observed.items():
+            if c > fb.observed.get(pid, -1):
+                fb.observed[pid] = c
+        for pid, v in got.observed_shard.items():
+            old = fb.observed_shard.get(pid)
+            fb.observed_shard[pid] = v if (
+                old is None or old.shape != v.shape
+            ) else np.maximum(old, v)
+        fb.overflows += got.overflows
+        if fb.overflows >= s.compact_replan_after:
+            fb.overrides = {**(fb.overrides or {}), **fb.observed}
+            fb.overflows = 0
+            fb.replans += 1
+            self.stats.replans += 1
+            self._retire(cq, base, fb)
+        elif got.under_streak >= s.compact_shrink_after and streak_max \
+                and any(observed_bucket(c) < cq.point_caps.get(pid, 0)
+                        for pid, c in streak_max.items()
+                        if pid in cq.point_caps):
+            fb.overrides = {**(fb.overrides or {}), **streak_max}
+            # the shrink is evidence the old maxima are stale: decay
+            # fb.observed to the window max too, or a later re-plan
+            # would resurrect a historical spike and ping-pong the
+            # capacity back up (docs §6: "a historical spike cannot
+            # pin capacity up")
+            fb.observed.update(streak_max)
+            fb.shrinks += 1
+            self.stats.shrinks += 1
+            self._retire(cq, base, fb)
 
     def _retire(self, cq: CompiledQuery, base: tuple,
                 fb: _Feedback) -> None:
@@ -783,9 +769,7 @@ class PlanCache:
             del self._entries[cq._cache_key]
         self._drop_ladder(cq._cache_key)
         cq._cache_key = None
-        with cq._obs_lock:
-            cq.under_streak = 0
-            cq.streak_max = {}
+        cq.observations.reset_streak()
 
     # -- batched execution -----------------------------------------------------
     def run_many(self, cq: CompiledQuery, runtime_list) -> list:

@@ -37,6 +37,7 @@ from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
 
+from repro_torch.core.observations import Observations
 from repro_torch.core.passes.pipeline import Settings, degrade
 
 
@@ -75,15 +76,16 @@ class Runnable(Protocol):
     N bindings positionally.  Binding validation is identical across
     tiers: a dict must name exactly the plan's runtime parameters, and
     None means the construction-time defaults.  The observation surface
-    (`compaction_points`, `n_overflows`, `observed_max`, ...) exists on
-    every tier so `PlanCache`'s accounting and feedback harvesting never
+    (`compaction_points`, `point_caps`, `translate_points` and the
+    `observations` record that `PlanCache` harvests) exists on every tier
+    so `PlanCache`'s accounting and feedback harvesting never
     special-case the tier they run against — tiers without compaction
     machinery report zero points and are skipped naturally."""
 
     tier_name: str
     param_spec: dict
     compaction_points: int
-    n_overflows: int
+    observations: Observations
 
     def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
         ...

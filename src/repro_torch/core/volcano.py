@@ -15,13 +15,15 @@ interpreter speed, while the compiled tiers build in the background.
 """
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import numpy as np
 
 from repro_torch.core import ir
 from repro_torch.core.expr import EvalEnv, eval_expr
+from repro_torch.core.observations import Observations
+from repro_torch.core.passes.param_binding import (check_bindings,
+                                                   runtime_params)
 from repro_torch.relational.loader import Database
 from repro_torch.relational.schema import ColKind
 
@@ -281,11 +283,12 @@ class VolcanoEngine:
 class OracleQuery:
     """The Volcano engine behind the `CompiledQuery` contract (a
     `tiering.Runnable`): `run`/`run_many` with identical binding
-    validation, plus the staged-outputs observation surface (all empty —
-    the interpreter compacts by materializing, so it has no capacity
-    points, overflows, or traces to report).  Construction performs no
-    staging and no compilation: this is the tier ladder's always-ready
-    bottom rung, built once per cold plan shape by the tiered PlanCache.
+    validation, plus the staged-outputs observation surface (empty: the
+    interpreter compacts by materializing, so it has no capacity points
+    or overflows to report, and its record only counts runs).
+    Construction performs no staging and no compilation: this is the tier
+    ladder's always-ready bottom rung, built once per cold plan shape by
+    the tiered PlanCache.
 
     The plan must have compile-time (structural) parameters already
     substituted, exactly like CompiledQuery — `PlanCache._prepare` does
@@ -299,72 +302,28 @@ class OracleQuery:
 
     def __init__(self, plan: ir.Plan, db: Database,
                  params: Optional[dict] = None):
-        from repro_torch.core.passes.param_binding import plan_params
-
         self.db = db
         self.plan = plan
-        spec = plan_params(plan)
-        structural = sorted(n for n, i in spec.items() if i.structural)
-        if structural:
-            raise TypeError(
-                f"compile-time parameters {structural} are unresolved; "
-                "bind them via PlanCache or bind_plan before OracleQuery")
-        self.param_spec: dict[str, str] = {n: i.dtype
-                                           for n, i in spec.items()}
-        self.param_defaults = {n: (params or {})[n] for n in self.param_spec
-                               if n in (params or {})}
-        missing = sorted(set(self.param_spec) - set(self.param_defaults))
-        if missing:
-            raise KeyError(f"no binding supplied for parameters {missing}")
+        self.param_spec, self.param_defaults = runtime_params(
+            plan, params, "PlanCache or bind_plan before OracleQuery")
         self._engine = VolcanoEngine(db)
-        # staged-outputs contract, vacuously satisfied: zero compaction /
-        # measure points, nothing to overflow, no traces.  PlanCache's
-        # compaction accounting and feedback harvesting read these and
-        # skip the tier naturally (no isinstance checks anywhere).
+        # the plan's facts PlanCache's compaction accounting reads: no
+        # points, so the cache skips the tier (no isinstance checks)
         self.compaction_points = 0
-        self.measure_points = 0
-        self.capacities: tuple = ()
         self.point_caps: dict[str, int] = {}
         self.translate_points: set[str] = set()
-        self.n_overflows = 0
-        self.n_traces = 0
-        self.n_batch_traces = 0
-        self.n_executions = 0
-        self.pass_time = 0.0
-        self.stage_time = 0.0
-        self._obs_lock = threading.Lock()
-        self.observed_max: dict[str, int] = {}
-        self.observed_shard: dict[str, np.ndarray] = {}
-        self.under_streak = 0
-        self.streak_max: dict[str, int] = {}
-        self._cache_key: Optional[tuple] = None
-
-    def _check_bindings(self, params: Optional[dict]) -> dict:
-        """Same semantics as CompiledQuery._check_bindings: None means the
-        construction-time defaults; a dict must name every runtime
-        parameter (a partial dict would silently mix two requests)."""
-        if params is None:
-            return self.param_defaults
-        unknown = sorted(set(params) - set(self.param_spec))
-        if unknown:
-            raise KeyError(f"unknown parameters {unknown}; this plan "
-                           f"takes {sorted(self.param_spec)}")
-        missing = sorted(set(self.param_spec) - set(params))
-        if missing:
-            raise KeyError(f"no binding supplied for parameters "
-                           f"{missing}")
-        return params
+        self.observations = Observations(self.point_caps)
 
     def run(self, params: Optional[dict] = None) -> dict[str, np.ndarray]:
-        bound = self._check_bindings(params)
-        self.n_executions += 1
+        bound = check_bindings(self, params)
+        self.observations.record([], 1)
         return self._engine.execute(self.plan, bound)
 
     def run_many(self, bindings_list) -> list[dict[str, np.ndarray]]:
         """One interpreted execution per binding (no vmap at this tier);
         validates every binding up front so a bad one fails the call
         before any slot executes, like the batched staged program."""
-        bound = [self._check_bindings(b) for b in bindings_list]
+        bound = [check_bindings(self, b) for b in bindings_list]
         return [self.run(b if b is not self.param_defaults else None)
                 for b in bound]
 

@@ -183,3 +183,53 @@ def test_hand_planted_point_replans_from_observed(sides):
     assert obs["replans"] == 1 and obs["overflows"] == 0
     assert obs["caps"]["h0"] > 64
 
+
+def test_a_planted_overflow_reaches_the_cache_alike_from_walk_and_pass(
+        pdb, monkeypatch):
+    """q6's Select squeezed through 64 rows, which its default binding
+    overflows and a one-unit quantity cutoff leaves empty: three scalar
+    walks (`execute`) hand the cache's feedback step the same snapshot
+    and, summed, the same overflow count as one batched pass of the same
+    bindings (`run_many`).  The Volcano tier's record counts its runs and
+    records nothing."""
+    from repro_torch.core import PlanCache, preset
+    from repro_torch.core.ir import Agg, Compact
+    from repro_torch.core.observations import Harvest
+    from repro_torch.core.volcano import OracleQuery
+    from repro_torch.relational.queries import PARAM_QUERIES
+
+    build, defaults = PARAM_QUERIES["q6"]
+    q6 = build()
+    plan = Agg(Compact(q6.child, 64), [], q6.aggs)
+    bindings = [dict(defaults, qty_max=1.0), defaults,
+                dict(defaults, qty_max=1.0)]
+    settings = preset("opt")
+
+    def harvests(walks: bool):
+        cache = PlanCache(pdb, device="cpu")
+        got, step = [], cache._feedback_step
+        monkeypatch.setattr(cache, "_feedback_step",
+                            lambda cq, h: got.append(h) or step(cq, h))
+        if walks:
+            for b in bindings:
+                cache.execute(plan, settings, b)
+        else:
+            cq, _ = cache.get(plan, settings, defaults)
+            cache.run_many(cq, bindings)
+            assert cq.n_executions == 1
+        assert cache.stats.overflows == 1
+        assert cache.stats.compactions == 3
+        return got
+
+    walked, passed = harvests(True), harvests(False)
+    assert [h.overflows for h in walked] == [0, 1, 0]
+    assert passed == [dataclasses.replace(walked[-1], overflows=1)]
+    assert passed[0].observed["h0"] > 64 and passed[0].under_streak == 1
+
+    oq = OracleQuery(plan, pdb, params=defaults)
+    oq.run_many(bindings)
+    assert oq.observations.n_executions == 3
+    assert oq.observations.harvest() == Harvest(0, {}, {}, 0, {})
+    assert not any(hasattr(oq, f) for f in (
+        "_obs_lock", "observed_max", "observed_shard", "under_streak",
+        "streak_max"))

@@ -141,10 +141,12 @@ def test_run_many_splits_into_passes_of_batch_max(pdb, monkeypatch, n,
         assert_identical(g, cq.run(b))
 
 
-def test_run_many_reads_every_count_in_one_copy(pdb, monkeypatch):
-    """q3's two compaction points over five bindings: one device-to-host
-    read of all ten counts (the batched pass's), then the results; `run`
-    reads its own two in one more."""
+@pytest.mark.parametrize("mode", ["run", "run_many", "batch"])
+def test_run_many_reads_every_count_in_one_copy(pdb, monkeypatch, mode):
+    """q3's two compaction points: `run` reads its two counts in one
+    device-to-host copy, `run_many` of five bindings all ten (the batched
+    pass's), and `CompiledQueryBatch.run` every member's; each then
+    gives the answers of `run`."""
     build, defaults = PARAM_QUERIES["q3"]
     plan = build()
     from repro_torch.core.passes.param_binding import bind_plan
@@ -153,18 +155,32 @@ def test_run_many_reads_every_count_in_one_copy(pdb, monkeypatch):
     rt = {"cutoff": defaults["cutoff"]}
     cq = CompiledQuery(plan, pdb, preset("opt"), params=rt, device="cpu")
     assert cq.compaction_points == 2
-    reads = []
-    real, real_many = cq._counts_to_host, cq._batch_counts_to_host
-    monkeypatch.setattr(cq, "_counts_to_host",
-                        lambda runs: reads.append(len(runs)) or real(runs))
-    monkeypatch.setattr(
-        cq, "_batch_counts_to_host",
-        lambda counts, n: reads.append(n) or real_many(counts, n))
     bindings = [{"cutoff": days("1995-03-15") + 30 * i} for i in range(5)]
-    got = cq.run_many(bindings)
-    assert reads == [5]
-    assert cq.run(bindings[2]) is not None and reads == [5, 1]
-    assert_identical(got[2], cq.run(bindings[2]))
+    members = [QUERIES[q]() for q in ("q3", "q6", "q12")]
+    batch = CompiledQueryBatch(members, pdb, preset("opt"), device="cpu") \
+        if mode == "batch" else None
+    reads, real = [], CompiledQuery._counts_to_host
+
+    def read(self, runs):
+        got = real(self, runs)
+        reads.append(len(got))
+        return got
+
+    monkeypatch.setattr(CompiledQuery, "_counts_to_host", read)
+    if mode == "run":
+        got, want = [cq.run(bindings[2])], [bindings[2]]
+    elif mode == "run_many":
+        got, want = cq.run_many(bindings), bindings
+    else:
+        got = batch.run()
+    assert reads == [len(got)]
+    monkeypatch.undo()
+    if mode == "batch":
+        for g, q in zip(got, batch.queries):
+            assert_identical(g, q.run())
+    else:
+        for g, b in zip(got, want):
+            assert_identical(g, cq.run(b))
 
 
 def test_run_many_without_params_returns_independent_copies(pdb):

@@ -127,7 +127,7 @@ def _recorded_walk(cq, binding: dict):
                           lambda: events.append("end"))
     inputs = {**cq.resident, **{f"param/{n}": t for n, t in params.items()}}
     run = cq._walk(inputs, cq.device, engine=rec)
-    got = cq._settle([binding], [run], cq._counts_to_host([run[2]]))[0]
+    got = cq._settle([binding], [run])[0]
     return got, rec, events
 
 

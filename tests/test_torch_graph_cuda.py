@@ -63,7 +63,7 @@ def free_the_pools():
 def _eager(cq, params=None) -> dict:
     """`run(params)` through the eager walk: `execute` and `_settle`."""
     run = cq.execute(cq.bind(params))
-    return cq._settle([params], [run], cq._counts_to_host([run[2]]))[0]
+    return cq._settle([params], [run])[0]
 
 
 def _bitwise(a: dict, b: dict) -> bool:
