@@ -108,9 +108,14 @@ result line):
      build (these runs replay the captured walk, whose large-domain
      aggregation moves no counter); (b) the batched pass, its launch counters set to 0 before
      and read after: 64 bindings of each of the six plans as one
-     `run_many`, one execution each, launching exactly
+     eager `run_many` (the pass graph's lock held, so that it does not
+     replay: a replay calls no entry point), one execution each,
+     launching exactly
      `LAUNCHES_SF1_PARAM[q]` and `DENSE_AGG_SF1_PARAM[q]` (not 64 times
-     them), every batched instance
+     them), then the same bindings as the main path runs them (the
+     first full pass captures the pass as one graph and replays it): the
+     kernels recorded into the graph (`PassGraph.launches`) the same
+     table, the replay's slots the eager pass's, every batched instance
      launched, q1's and q6's selective launch on the staged path (the
      wrapper's `filter_agg.staging`), q14's and q19's aggregations on the
      staged register regime (`filter_agg.filter_agg_staging`) and q12's
@@ -118,7 +123,8 @@ result line):
      peak device memory; every slot against `run`
      and the CPU; at 1, 2, 3, 4, 16 and 64 bindings the executions
      `run_many` takes (one scalar walk a binding below
-     `compile.BATCH_MIN`, else passes), then `execute_many`, the entry's
+     `compile.BATCH_MIN`, else passes; at 64 the captured graph
+     replays), then `execute_many`, the entry's
      `run_many`, one batched pass (`run_batched`) and n `run`s, ms a
      binding (least of 3); a planted
      64-row point that one slot of 64 overflows: one overflow, the twin
@@ -2046,7 +2052,10 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
         st0 = dict(staging)
         r0 = {name: dict(c) for name, c in routes.items()}
         e0, o0 = cq.n_executions, cq.n_overflows
-        passes[q] = cq.run_many([rts[i % 2] for i in range(big)])
+        # the eager pass, counted: a full pass that finds the graph's lock
+        # held stays eager (the capturing pass and its replay follow)
+        with cq._pass_lock:
+            passes[q] = cq.run_many([rts[i % 2] for i in range(big)])
         staged_passes[q] = {k: staging[k] - st0[k] for k in staging}
         route_passes[q] = {name: {k: c[k] - r0[name][k] for k in c}
                            for name, c in routes.items()}
@@ -2074,6 +2083,24 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
             want = launches_sf1(q, param=True)
             check(got == want, f"run_many {q} x{big}: launches {got}, one "
                   f"pass of the reference's and the port's {want}")
+            # the main path's pass: the first full pass with the lock free
+            # captures it as one graph (graphs.PassGraph) and replays it,
+            # which calls no entry point, so the kernels recorded into the
+            # graph while it was captured are held to the same table
+            replayed = cq.run_many([rts[i % 2] for i in range(big)])
+            graph = cq._pass_graph
+            check(graph is not None and cq.n_pass_replays == 1,
+                  f"run_many {q} x{big}: the full pass was not captured "
+                  f"and replayed ({cq.pass_capture_error})")
+            rec = {}
+            for name, v in (graph.launches if graph else {}).items():
+                base = BATCHED_OF.get(name, name)
+                rec[base] = rec.get(base, 0) + v
+            check(rec == want, f"run_many {q} x{big}: the graph records "
+                  f"launches {rec}, not the eager pass's {want}")
+            for i, (r, e) in enumerate(zip(replayed, passes[q])):
+                assert_same(r, e, False, f"run_many {q} {big}[{i}] replayed")
+            log(f"run_many {q} x{big}: the graph records launches {rec}")
         log(f"run_many {q} x{big}: one execution, launches {got}")
         entries[q] = (cq, rts)
     batched_launched = {n: d[k] for n, (d, k) in bcounters.items()}
@@ -2118,6 +2145,10 @@ def serving_path(db, answers, counters, bcounters, args) -> dict:
             check(cq.n_executions - e0 == want_e,
                   f"run_many {q} x{n}: {cq.n_executions - e0} executions, "
                   f"not {want_e}")
+            if cuda and n == compile_mod.BATCH_MAX:
+                check(cq.n_pass_replays > 0,
+                      f"run_many {q} x{n}: the full pass did not replay "
+                      f"as a graph ({cq.pass_capture_error})")
             many_ms, many = least_ms(
                 lambda: cache.execute_many(plan[q](), S, bl))
             rmany_ms, rmany = least_ms(lambda: cq.run_many(rl))

@@ -62,9 +62,16 @@ scalar walk as CUDA graphs cut at the engine's entry points
 binding at a time) replays them: one parameter copy, the segments, and
 between them the entry points called eagerly with the binding's host
 scalars.  Replay holds a lock from the parameter copy until the result is
-on the host; a run that finds it held takes the eager walk, as do the
-batched passes, sharded queries, `CompiledQueryBatch`, the overflow twin
-and the CPU.
+on the host; a run that finds it held takes the eager walk, as do
+sharded queries, `CompiledQueryBatch`, the overflow twin and the CPU.
+A batched pass of exactly BATCH_MAX bindings (`replays_pass`) is
+captured whole, as one graph, on the query's first such pass, and
+replayed from then on: one copy of the bindings from a pinned buffer and
+the graph, under a lock of its own, released as the scalar replay's is.
+Every other pass (any other N, sharded, on the CPU, the twin's, one
+that finds the lock held, or one of a query whose capture raised or
+found no room on the device) is the eager vmapped walk; nothing is
+padded to reach a graph.
 
 Sharded execution (`Settings.shards != 1`): the Sharding pass partitions
 the partition root and the tables routed to it over a 1-D data mesh
@@ -109,7 +116,6 @@ from repro_torch.core.mesh import AXIS, data_mesh, resolve_shards
 from repro_torch.core.operators import StageCtx, frame_nrows
 from repro_torch.core.observations import Observations, read
 from repro_torch.core.passes.param_binding import (check_bindings,
-                                                   param_layout,
                                                    runtime_params)
 from repro_torch.core.passes.pipeline import Settings, optimize
 from repro_torch.core.spans import span
@@ -136,6 +142,15 @@ DEVICE_SELECT_ROWS = 1 << 16
 # (which grows with N) stays within the measured pass's
 BATCH_MIN = 3
 BATCH_MAX = 64
+
+
+def replays_pass(n: int, n_shards: int, device, twin: bool) -> bool:
+    """Does a batched pass of `n` bindings replay as one CUDA graph
+    (`core/graphs.py`)?  A full pass (BATCH_MAX bindings) of an unsharded
+    query on CUDA that is not an overflow twin does; every other pass is
+    the eager vmapped walk."""
+    return n == BATCH_MAX and n_shards == 1 \
+        and torch.device(device).type == "cuda" and not twin
 
 # stagings in this process: one per CompiledQuery construction.  The
 # runtime layer's tests read it to show that re-binding parameters stages
@@ -236,6 +251,14 @@ class CompiledQuery:
         self._replay_lock = threading.Lock()
         self.n_replays = 0
         self.capture_error: Optional[str] = None
+        # a full batched pass captured as one CUDA graph, on the first
+        # such pass (`replays_pass`), the passes that replayed it, and why
+        # its capture raised where it did; one replay at a time, as above.
+        # The overflow twin (measure-only) never captures one
+        self._pass_graph: Optional[graphs.PassGraph] = None
+        self._pass_lock = threading.Lock()
+        self.n_pass_replays = 0
+        self.pass_capture_error: Optional[str] = None
         self._cache_key: Optional[tuple] = None   # set by PlanCache
         self.compile_time: Optional[float] = None
         # sharded execution: the Sharding pass resolved the same settings
@@ -514,22 +537,52 @@ class CompiledQuery:
 
     def _pass(self, bindings_list: list, merged: list[dict]) -> list:
         """One batched pass of the bindings (`merged`: their checked
-        values), settled."""
-        return self._settle(bindings_list,
-                            [self.execute_many(self.bind_many(merged))])
+        values), settled: replayed where `_pass_replay` can, else the
+        eager vmapped walk."""
+        run = self._pass_replay(merged)
+        if run is None:
+            return self._settle(bindings_list,
+                                [self.execute_many(self.bind_many(merged))])
+        return self._settle(bindings_list, [run],
+                            release=self._pass_lock.release)
+
+    def _pass_replay(self, merged: list[dict]):
+        """The pass of `merged` through its CUDA graph, captured here on
+        the first pass that `replays_pass` admits; the caller's settle
+        releases `_pass_lock`, which this holds on return, once the
+        counts and the frames are on the host.  None, with the lock free,
+        where the pass is not admitted, finds the lock held, or its
+        capture raised (counted and logged): the eager pass then."""
+        if not replays_pass(len(merged), self.n_shards, self.device,
+                            self.settings.compact_measure_only) \
+                or not self._pass_lock.acquire(blocking=False):
+            return None
+        try:
+            if self._pass_graph is None and self.pass_capture_error is None:
+                try:
+                    self._pass_graph = graphs.capture_pass(self, merged)
+                except Exception as e:  # noqa: BLE001 - counted and logged
+                    self.pass_capture_error = f"{type(e).__name__}: {e}"
+                    graphs.failed(e)
+            run = None if self._pass_graph is None \
+                else self._pass_graph.replay(merged)
+        except BaseException:
+            self._pass_lock.release()
+            raise
+        if run is None:
+            self._pass_lock.release()
+            return None
+        self.n_pass_replays += 1
+        return run
 
     def bind_many(self, merged: list[dict]) -> dict:
         """The `param/<name>` inputs of a batched pass: each parameter's
         (N,) vector of its dtype, on the query's device, from one
-        host-to-device copy of every parameter's bytes (`param_layout`)."""
-        layout, size = param_layout(self.param_spec, len(merged))
-        host = np.empty(size, dtype=np.uint8)
-        for name, dt, at in layout:
-            host[at:at + len(merged) * dt.itemsize].view(dt)[:] = \
-                np.asarray([m[name] for m in merged], dtype=dt)
-        raw = torch.from_numpy(host).to(self.device)
-        return {f"param/{name}": raw[at:at + len(merged) * dt.itemsize]
-                .view(getattr(torch, dt.name)) for name, dt, at in layout}
+        host-to-device copy of every parameter's bytes (`ParamBuffer`)."""
+        buf = graphs.ParamBuffer(self.param_spec, len(merged), self.device)
+        buf.write(merged)
+        buf.send()
+        return buf.inputs()
 
     def execute_many(self, pvec: dict):
         """The batched staged walk over `bind_many`'s parameter vectors:

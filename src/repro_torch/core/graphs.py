@@ -1,5 +1,5 @@
-"""CUDA graph replay of the scalar staged walk, cut at the engine's entry
-points.
+"""CUDA graph replay of the staged walk: the scalar walk cut at the
+engine's entry points, and a full batched pass as one graph.
 
 `run()`'s staged walk enqueues about ninety PyTorch operations a query
 (gathers, scatters, `index_add_`, compares, sorts) around one or two
@@ -9,7 +9,7 @@ is fixed at staging (a compaction point has a static capacity) and
 nothing in it reads the device, so its work can be captured once and
 replayed.
 
-The walk is captured as segments: CUDA graphs cut at every call of one
+The scalar walk is captured as segments: CUDA graphs cut at every call of one
 of the four engine entry points of `kernels/ops.py` (`filter_agg_query`,
 `compact_query`, `compact_pred_query`, `selective_agg_query`).  Their
 kernels are not captured: the entry points stay eager calls on every
@@ -23,9 +23,9 @@ captured there.  A replay launches it without calling its entry point
 (`ops.calls` counts the capture's call only).
 
 Capture (`capture`, from `CompiledQuery.compile`): the runtime
-parameters reach the walk as 0-d views of one device buffer, at each
-parameter's dtype (`StageCtx.param` hands a tensor through, as in the
-bind-many pass).  The walk runs once on a side stream with a `Recorder`
+parameters reach the walk as 0-d views of one device buffer
+(`ParamBuffer`), at each parameter's dtype (`StageCtx.param` hands a
+tensor through, as in the bind-many pass).  The walk runs once on a side stream with a `Recorder`
 as its engine hook (`StageCtx.kernel`), capturing into one private
 memory pool.  At each entry-point call the recorder ends the segment,
 replays it once so that the call reads real inputs, makes the call
@@ -41,6 +41,27 @@ entry point again with the binding's host scalars, its outputs copied
 into the fixed tensors, and the next segment.  The walk's outputs are
 the same tensors every replay, so one replay's result must be on the
 host before the next begins (`CompiledQuery` holds a lock for that).
+
+A batched pass (`CompiledQuery.execute_many`, the staged walk under
+`torch.func.vmap`) needs no cuts: its parameters are device tensors from
+the first operation to the last, and the entry points' vmap rules launch
+the batched kernels with them as device vectors, on the current stream.
+Nothing in a pass reads a value back to the host, and every shape in it
+is fixed by the number of bindings, so a pass of N bindings is one pure
+function of one parameter buffer.  `capture_pass` captures it whole, as
+one graph (`PassGraph`), lazily on the query's first pass of
+`compile.BATCH_MAX` bindings: the parameters as (N,) views of one
+`ParamBuffer`, the kind `bind_many` fills a pass, one eager warm pass
+over those views, then the pass on a side stream into a private pool.
+The pool lives as long as the query, so a pass is captured only where
+the device's free memory holds it twice (the graph's, and an eager pass
+beside it); where it does not, the query stays on the eager pass, as
+where a capture raised.  The kernel launches recorded into the graph
+are kept (`PassGraph.launches`).  A replay writes the N bindings into
+the buffer's pinned host side, copies it over in one copy and replays
+the graph; the entry points are not called (their counters do not move)
+and the pass's outputs are the same tensors every replay, under a lock
+of their own (`CompiledQuery._pass_lock`).
 """
 from __future__ import annotations
 
@@ -58,8 +79,9 @@ from repro_torch.core.spans import span
 
 log = logging.getLogger(__name__)
 
-# captures that raised in this process; each such plan stays on the
-# eager walk, and each distinct reason is logged once
+# captures that raised in this process (of a walk or of a pass); each
+# such plan stays on the eager walk or pass, and each distinct reason is
+# logged once
 FAILURES = 0
 _REASONS: set = set()
 _FAIL_LOCK = threading.Lock()
@@ -226,45 +248,89 @@ class _Segments:
             g.replay()
 
     def abort(self) -> None:
-        """End a capture that raised, on its stream, so that the stream
-        leaves capture mode."""
+        """End a capture that raised (`_abort`)."""
         g, self._open = self._open, None
         if g is not None:
-            try:
-                g.capture_end()
-            except Exception:       # noqa: BLE001 - the capture is void
-                pass
+            _abort(g, self.pool)
+
+
+def _abort(graph, pool) -> None:
+    """End a capture that raised, on its stream, so that the stream
+    leaves capture mode, and end the allocator's routing to its pool
+    `pool`: a void capture's `capture_end` raises before it ends that
+    routing, and while the allocator counts a capture underway it gives
+    no cached memory back (`torch.cuda.empty_cache`, or on running out)."""
+    try:
+        graph.capture_end()
+    except Exception:           # noqa: BLE001 - the capture is void
+        try:
+            torch._C._cuda_endAllocateToPool(torch.cuda.current_device(),
+                                             pool)
+        except Exception:       # noqa: BLE001 - no routing was left
+            pass
+
+
+class ParamBuffer:
+    """The runtime parameters of `n` bindings in one byte buffer, laid
+    out by `param_layout(spec, n)`: on the host (page-locked where
+    `pinned`, for a copy that does not hold the host) and on the device,
+    where each parameter's (n,) vector is a view (`views`, by name) at a
+    fixed address.  `CompiledQuery.bind_many` fills one a pass; a
+    captured walk or pass keeps one, pinned."""
+
+    def __init__(self, spec: dict, n: int, device, pinned: bool = False):
+        layout, size = param_layout(spec, n)
+        self.host = torch.empty(size, dtype=torch.uint8)
+        on_host = torch.device(device).type == "cpu"
+        self.pinned = pinned and size > 0 and not on_host
+        if self.pinned:
+            self.host = self.host.pin_memory()
+        self.dev = self.host if on_host \
+            else torch.empty(size, dtype=torch.uint8, device=device)
+        raw = self.host.numpy()
+        self.slots: dict = {}               # name -> (dtype, host view)
+        self.views: dict = {}               # name -> (n,) device view
+        for name, dt, at in layout:
+            end = at + n * dt.itemsize
+            self.slots[name] = (dt, raw[at:end].view(dt))
+            self.views[name] = self.dev[at:end].view(getattr(torch, dt.name))
+
+    def inputs(self) -> dict:
+        """The views as a walk's `param/<name>` inputs."""
+        return {f"param/{name}": v for name, v in self.views.items()}
+
+    def write(self, merged: list[dict]) -> None:
+        """Write the bindings into the host buffer."""
+        for name, (dt, slot) in self.slots.items():
+            slot[:] = np.asarray([m[name] for m in merged], dtype=dt)
+
+    def send(self) -> None:
+        """Copy the host buffer to the device in one copy, ordered on the
+        current stream; a pinned host buffer must hold still until it
+        ran."""
+        if self.slots and self.dev is not self.host:
+            self.dev.copy_(self.host, non_blocking=self.pinned)
 
 
 class WalkGraph:
     """A captured walk: `segments` (one more than `calls`; None where
     nothing ran), the call nodes between them, the walk's outputs, and
-    the parameters' buffers: pinned on the host, and on the device, where
-    the walk reads each parameter as a 0-d view (`params`)."""
+    the parameters' buffer of one binding, where the walk reads each
+    parameter as a 0-d view (`params`)."""
 
     def __init__(self, spec: dict, device):
-        layout, size = param_layout(spec)
-        self._host = torch.empty(size, dtype=torch.uint8)
-        if size:
-            self._host = self._host.pin_memory()
-        self._dev = torch.empty(size, dtype=torch.uint8, device=device)
-        raw = self._host.numpy()
-        self._slots: dict = {}              # name -> (dtype, host view)
-        self.params: dict = {}              # name -> 0-d device view
-        for n, dt, at in layout:
-            self._slots[n] = (dt, raw[at:at + dt.itemsize].view(dt))
-            self.params[n] = self._dev[at:at + dt.itemsize].view(
-                getattr(torch, dt.name)).reshape(())
+        self.buf = ParamBuffer(spec, 1, device, pinned=True)
+        self.params = {n: v.reshape(()) for n, v in self.buf.views.items()}
         self.segments: list = []
         self._held: list = []               # every graph, empty ones too
         self.calls: list[CallNode] = []
         self.out = self.mask = self.counts = None
 
     def bind(self, merged: dict) -> dict:
-        """Write a binding into the pinned buffer; its host scalars, as
+        """Write a binding into the buffer; its host scalars, as
         `CompiledQuery.bind` and `StageCtx.param` make them."""
         host = {}
-        for n, (dt, slot) in self._slots.items():
+        for n, (dt, slot) in self.buf.slots.items():
             v = np.asarray(merged[n], dtype=dt)
             slot[0] = v
             host[n] = v.item()
@@ -275,8 +341,7 @@ class WalkGraph:
         the same tensors every replay, on the device."""
         host = self.bind(merged)
         with span("repro.replay"), span("repro.walk"):
-            if self._slots:
-                self._dev.copy_(self._host, non_blocking=True)
+            self.buf.send()
             if self.segments[0] is not None:
                 self.segments[0].replay()
             for node, seg in zip(self.calls, self.segments[1:]):
@@ -294,7 +359,7 @@ def capture(cq) -> WalkGraph:
     dev = cq.device
     g = WalkGraph(cq.param_spec, dev)
     host = g.bind(cq.param_defaults)
-    g._dev.copy_(g._host)
+    g.buf.send()
     inputs = {**cq.resident,
               **{f"param/{n}": t for n, t in g.params.items()}}
     segs = _Segments()
@@ -318,6 +383,104 @@ def capture(cq) -> WalkGraph:
     return g
 
 
+class PassGraph:
+    """A batched pass of `n` bindings captured as one CUDA graph: the
+    parameters' buffer of `n` bindings, where the pass reads each
+    parameter's (n,) vector as a view (`params`, keyed by its input
+    name, as `bind_many`'s), the graph, the pass's outputs, and the
+    kernel launches recorded into the graph (`launches`, by each kernel
+    module's counter name; what its counters moved by while the pass
+    was captured, exact where no other thread launched meanwhile)."""
+
+    def __init__(self, spec: dict, n: int, device):
+        self.buf = ParamBuffer(spec, n, device, pinned=True)
+        self.params = self.buf.inputs()
+        self.graph = None
+        self.out = self.mask = self.counts = None
+        self.launches: dict = {}
+
+    def replay(self, merged: list[dict]):
+        """The pass under the bindings `merged`: (columns, mask, counts),
+        the same tensors every replay, on the device."""
+        self.buf.write(merged)
+        with span("repro.replay"), span("repro.walk"):
+            self.buf.send()
+            self.graph.replay()
+        return self.out, self.mask, self.counts
+
+
+def _launch_counts() -> dict:
+    """Every kernel module's launch counters, by counter name (the
+    package's own names shadow its modules: import from each module)."""
+    from repro_torch.kernels.compact import launches as compact
+    from repro_torch.kernels.dense_agg import launches as dense_agg
+    from repro_torch.kernels.filter_agg import launches as filter_agg
+
+    return {**compact, **filter_agg, **dense_agg}
+
+
+def pass_need(before: dict, after: dict) -> int:
+    """An upper bound on the device memory a pass needed above what was
+    allocated before it, from the allocator's statistics
+    (`torch.cuda.memory_stats`) before and after it: the least of the
+    allocator's peak since its last reset (which an earlier, larger
+    allocation can hold above the pass's own) and the bytes allocated
+    while it ran (which count a reused buffer each time), less what was
+    allocated before it where that applies."""
+    return min(after["allocated_bytes.all.peak"]
+               - before["allocated_bytes.all.current"],
+               after["allocated_bytes.all.allocated"]
+               - before["allocated_bytes.all.allocated"])
+
+
+def capture_pass(cq, merged: list[dict]) -> PassGraph:
+    """Capture the unsharded CUDA query `cq`'s batched pass of the
+    bindings `merged` (the module's docstring): one eager warm pass over
+    the parameter views, then the pass on a side stream into a private
+    pool, in thread-local mode (a cold query may stage on another thread
+    meanwhile).  The pool keeps what the pass allocates for as long as
+    the query lives, so the pass is captured only where the device's
+    free memory holds it twice, the graph's and an eager pass's beside
+    it, its need bounded by the warm pass (`pass_need`).  Raises where
+    the pass cannot be captured or has no room; the device is left
+    idle."""
+    dev = cq.device
+    g = PassGraph(cq.param_spec, len(merged), dev)
+    g.buf.write(merged)
+    g.buf.send()
+    before = torch.cuda.memory_stats(dev)
+    cq.execute_many(g.params)
+    need = pass_need(before, torch.cuda.memory_stats(dev))
+    free, _total = torch.cuda.mem_get_info(dev)
+    if free < 2 * need:
+        raise RuntimeError(f"no room for the pass's graph: the pass needs "
+                           f"up to {need} B, twice that is more than the "
+                           f"device's {free} B free")
+    graph = torch.cuda.CUDAGraph()
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    pool = torch.cuda.graph_pool_handle()
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                launched = _launch_counts()
+                g.out, g.mask, g.counts = cq.execute_many(g.params)
+                g.launches = {k: v - launched[k]
+                              for k, v in _launch_counts().items()
+                              if v != launched[k]}
+            except BaseException:
+                _abort(graph, pool)
+                raise
+            graph.capture_end()
+    finally:
+        main.wait_stream(side)
+        torch.cuda.synchronize(dev)
+    g.graph = graph
+    return g
+
+
 def failed(err: BaseException) -> None:
     """Count a capture that raised, and log its reason the first time."""
     global FAILURES
@@ -328,5 +491,5 @@ def failed(err: BaseException) -> None:
         new = reason not in _REASONS
         _REASONS.add(reason)
     if new:
-        log.warning("CUDA graph capture of a staged walk failed; the plan "
-                    "stays on the eager walk: %s", reason, exc_info=err)
+        log.warning("CUDA graph capture of a staged walk or pass failed; "
+                    "the plan stays eager there: %s", reason, exc_info=err)

@@ -819,6 +819,12 @@ class PlanCache:
         with self._lock:
             return len(self._entries)
 
+    def pass_replays(self) -> int:
+        """Batched passes replayed as one CUDA graph (`core/graphs.py`)
+        by the plans the cache holds."""
+        with self._lock:
+            return sum(cq.n_pass_replays for cq in self._entries.values())
+
     @staticmethod
     def stagings() -> int:
         """Global CompiledQuery construction count (for compile-counter

@@ -11,7 +11,8 @@ switch, buffer or clock here: the profiler is the recorder.
 
 The names (`repro.` and then the layer):
 
-  repro.replay           a replay of the walk captured as CUDA graphs
+  repro.replay           a replay of the walk captured as CUDA graphs,
+                         or of a full batched pass captured as one
                          (`core/graphs.py`), around its `repro.walk`
   repro.walk             the staged walk's enqueue (`CompiledQuery._walk`),
                          or its replay's

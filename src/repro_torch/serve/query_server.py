@@ -137,6 +137,10 @@ class ServerStats:
     # shrinks from sustained underuse — see CacheStats)
     replans: int = 0
     shrinks: int = 0
+    # groups whose batched pass replayed as one CUDA graph (a group of
+    # the default `max_batch` runs one pass), of the plans the cache
+    # holds (`PlanCache.pass_replays`)
+    pass_replays: int = 0
     # completion latency (submit -> result) of successful requests
     latency: LatencyHistogram = dataclasses.field(
         default_factory=LatencyHistogram)
@@ -709,6 +713,7 @@ class QueryServer:
                 delivered += 1
             elif st == "cancelled":
                 cancelled += 1
+        replays = self.cache.pass_replays()
         with self._lock:
             self.stats.completed += delivered
             self.stats.cancelled += cancelled
@@ -717,3 +722,4 @@ class QueryServer:
                 self.stats.coalesced += len(results)
             self.stats.replans = self.cache.stats.replans
             self.stats.shrinks = self.cache.stats.shrinks
+            self.stats.pass_replays = replays

@@ -325,15 +325,25 @@ def _q3_bindings(runtime, n):
 
 
 def test_run_many_of_q3_equals_its_runs(db):
-    """A 64-binding pass of q3 (one batched launch) against 64 runs."""
+    """A 64-binding pass of q3 (one batched launch) against 64 runs.  The
+    first full pass captures the pass as one graph: one launch in its
+    eager warm pass and one recorded into the graph; its replays launch
+    the kernel without calling it."""
     cq, runtime = _param_query(db, "q3")
     cq.compile()
     bindings = _q3_bindings(runtime, 64)
     launched = kd.launches["dense_agg_batched"]
     many = cq.run_many(bindings)
-    assert kd.launches["dense_agg_batched"] == launched + 1
+    assert cq.n_pass_replays == 1, cq.pass_capture_error
+    assert kd.launches["dense_agg_batched"] == launched + 2
     for b, got in zip(bindings, many):
         _same(got, cq.run(b))
+    with cq._pass_lock:             # a pass that finds it held is eager
+        again = cq.run_many(bindings)
+    assert kd.launches["dense_agg_batched"] == launched + 3
+    assert cq.n_pass_replays == 1
+    for w, got in zip(many, again):
+        _same(got, w)
 
 
 def test_four_threads_under_the_profiler(db):
@@ -344,6 +354,10 @@ def test_four_threads_under_the_profiler(db):
     cq.compile()
     bindings = _q3_bindings(runtime, 64)
     want = [cq.run(b) for b in bindings]
+    # the full pass captured before the profiler starts, as the report
+    # service captures in its set-up: one thread replays, the others
+    # find the graph busy and run the eager pass
+    cq.run_many(bindings)
     errors, done = [], []
 
     def worker(k):
